@@ -21,7 +21,29 @@ non-zero exit before its last line:
    cc_pointer_jump, cc_dd_sparse, pr_push and pr_pull under the "cuda"
    substrate (launch counts set to 0 just before, read just after), then
    under the plain "torch" substrate on the card; labels and RunStats must
-   agree.
+   agree;
+7. suite kernels: edge_relax's int32 add (kcore's decrements) under both
+   masks at the symmetrized graph's shapes, bitwise; then the low-diameter
+   input ``kron(20, 16, seed=1)`` (``table3_suite(10)["kron30"]``, built as
+   ``examples/paper_suite.py`` builds it) and ``intersect`` on a chunk of
+   each graph's oriented edge list and on a tail chunk of padding, each
+   equal to its plain version exactly;
+8. paper suite on the web graph: kcore_peel, kcore_dd_sparse (k = 3, and
+   k = 64 fused and per-round), core_numbers, bc_brandes and tc_count
+   under "cuda" (counts set to 0 just before, read just after), then
+   "torch"; the quickstart graph on the card against the CPU first;
+9. paper suite on kron: the seven calls of ``paper_suite.run_input``
+   under both substrates, the same way.
+
+Agreement: labels, alive masks, core numbers and triangle counts bitwise;
+pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
+delta sums are float atomicAdds in an order that changes from run to run;
+the tolerance is the suite's own oracle check, and the largest error seen
+is printed beside it); RunStats equal except ``substrate`` and, in phase
+9, pagerank's round count, which may differ by one round: its
+residual-threshold exit reads float sums taken in another order (seen on
+kron: 143 rounds under "cuda", 142 under "torch").  Its rounds are all
+dense then, each charging m, and that is checked on both sides.
 
 It prints the kernels line (one JSON object) and, last, the device line.
 It exits non-zero without a result when no CUDA device is present or when
@@ -35,13 +57,22 @@ import json
 import subprocess
 import sys
 import time
+from collections import namedtuple
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
 ADD_RTOL_OF_ABS_SUM = 1e-5     # float add: |kernel - plain| <= 1e-5 * sum|terms|
-PR_RTOL, PR_ATOL = 1e-4, 1e-10
+PR_TOL = (1e-4, 1e-10)         # (rtol, atol)
+BC_TOL = (1e-3, 1e-4)          # float atomicAdd order in sigma and delta
+INTERSECT_CHUNK = 32_768       # tc_count's edge_chunk
+
+# one run of a path: ``fn() -> (labels, stats)``; ``tol`` is (rtol, atol)
+# for float scores, None for bitwise; ``dense_m`` is the graph's m for a
+# run of dense rounds only whose round count may differ by one between the
+# substrates (pagerank's residual exit reads float sums)
+Run = namedtuple("Run", "fn tol dense_m", defaults=(None, None))
 
 
 class SmokeFailure(RuntimeError):
@@ -157,7 +188,8 @@ def run_edge_relax_case(torch, gk, name, kw):
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     check(gk.edge_relax.launches == before + 1, f"{name}: no launch counted")
-    if kind == "add":
+    float_add = kind == "add" and args[5].dtype == torch.float32
+    if float_add:
         src, dst = args[0], args[1]
         act = args[3][src] if vm else args[3]
         terms = torch.where(act, gk.edge_message(args[4][src], args[2], kind, use_w), 0.0)
@@ -194,7 +226,7 @@ def run_edge_relax_case(torch, gk, name, kw):
     b_ms, b_by = bound_ms(nbytes, m)
     return dict(case=name, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=max_err,
-                compare="allclose" if kind == "add" else "bitwise")
+                compare="allclose" if float_add else "bitwise")
 
 
 def advance_cases(torch, g, fr, gen):
@@ -253,51 +285,92 @@ def run_advance_case(torch, gk, fr, g, name, mask, cap, budget):
 # ---- phases 5 and 6: small check and the main path --------------------------
 
 
-def main_path(torch, algos, g, gsym, source, substrate, ops):
-    """Run every algorithm of the path under ``substrate``; returns
-    {name: (labels, stats, wall_ms, peak_bytes)}."""
-    bfs, sssp, cc, pagerank = algos
-    runs = {
-        "bfs_dd_sparse": lambda: bfs.bfs_dd_sparse(g, source),
-        "bfs_dd_sparse(fused=False)": lambda: bfs.bfs_dd_sparse(g, source, fused=False),
-        "sssp_delta": lambda: sssp.sssp_delta(g, source, delta=4.0),
-        "cc_pointer_jump": lambda: cc.cc_pointer_jump(gsym),
-        "cc_dd_sparse": lambda: cc.cc_dd_sparse(gsym),
-        "pr_push": lambda: pagerank.pr_push(gsym),
-        # on the unweighted symmetrized graph: pr_pull relaxes with
-        # use_weight=True, as the reference does, so weights would scale it
-        "pr_pull": lambda: pagerank.pr_pull(gsym),
-    }
+def run_path(torch, runs, substrate, ops):
+    """Run each ``name: Run`` of ``runs`` under ``substrate``; returns
+    {name: (labels, stats, wall_ms, peak_bytes)}.  stats is None for a
+    utility without counters."""
     out = {}
     with ops.substrate_scope(substrate):
-        for name, fn in runs.items():
+        for name, run in runs.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            labels, stats = fn()
+            labels, stats = run.fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
             peak = torch.cuda.max_memory_allocated()
-            check(stats.substrate == substrate,
-                  f"{name}: RunStats.substrate {stats.substrate!r} under {substrate!r}")
+            if stats is not None:
+                check(stats.substrate == substrate,
+                      f"{name}: RunStats.substrate {stats.substrate!r} under {substrate!r}")
             out[name] = (labels, stats, wall, peak)
-            print(f"  {substrate:5s} {name:28s} wall_ms={wall} rounds={stats.rounds} "
-                  f"edges_touched={stats.edges_touched} peak_bytes={peak}", flush=True)
+            counters = ("" if stats is None else
+                        f" rounds={stats.rounds} edges_touched={stats.edges_touched}")
+            print(f"  {substrate:5s} {name:28s} wall_ms={wall}{counters} "
+                  f"peak_bytes={peak}", flush=True)
     return out
 
 
-def compare_runs(torch, name, a, b, exact):
+def main_path_runs(algos, g, gsym, source):
+    bfs, sssp, cc, pagerank = algos
+    return {
+        "bfs_dd_sparse": Run(lambda: bfs.bfs_dd_sparse(g, source)),
+        "bfs_dd_sparse(fused=False)": Run(lambda: bfs.bfs_dd_sparse(g, source,
+                                                                    fused=False)),
+        "sssp_delta": Run(lambda: sssp.sssp_delta(g, source, delta=4.0)),
+        "cc_pointer_jump": Run(lambda: cc.cc_pointer_jump(gsym)),
+        "cc_dd_sparse": Run(lambda: cc.cc_dd_sparse(gsym)),
+        "pr_push": Run(lambda: pagerank.pr_push(gsym), PR_TOL),
+        # on the unweighted symmetrized graph: pr_pull relaxes with
+        # use_weight=True, as the reference does, so weights would scale it
+        "pr_pull": Run(lambda: pagerank.pr_pull(gsym), PR_TOL),
+    }
+
+
+def compare_runs(torch, name, a, b, tol=None, dense_m=None):
+    """Labels bitwise when ``tol`` is None, else non-finite at the same
+    places and allclose within ``tol = (rtol, atol)``, printing the largest
+    errors seen; then RunStats equal but for ``substrate``.  With
+    ``dense_m`` the rounds may differ by one, each side's rounds must all be
+    dense and charge ``dense_m`` edges, and the other counters are equal."""
     (la, sa, _, _), (lb, sb, _, _) = a, b
-    check(la.shape == lb.shape and la.dtype == lb.dtype, f"{name}: shape/dtype differ")
-    if exact:
-        check(torch.equal(bits(torch, la.cpu()), bits(torch, lb.cpu())),
-              f"{name}: labels differ bitwise")
+    if isinstance(la, int):
+        check(la == lb, f"{name}: counts differ ({la} vs {lb})")
     else:
-        check(bool(torch.isfinite(la).all()), f"{name}: non-finite ranks")
-        check(torch.allclose(la.cpu(), lb.cpu(), rtol=PR_RTOL, atol=PR_ATOL),
-              f"{name}: ranks outside rtol={PR_RTOL} atol={PR_ATOL}")
+        la, lb = la.cpu(), lb.cpu()
+        check(la.shape == lb.shape and la.dtype == lb.dtype,
+              f"{name}: shape/dtype differ")
+        if tol is None:
+            check(torch.equal(bits(torch, la), bits(torch, lb)),
+                  f"{name}: labels differ bitwise")
+        else:
+            rtol, atol = tol
+            fa, fb = torch.isfinite(la), torch.isfinite(lb)
+            check(torch.equal(fa, fb), f"{name}: non-finite at different places")
+            check(torch.allclose(la, lb, rtol=rtol, atol=atol, equal_nan=True),
+                  f"{name}: scores outside rtol={rtol} atol={atol}")
+            err = (la[fa].double() - lb[fa].double()).abs()
+            ref = lb[fa].double().abs()
+            big = ref > atol
+            rel = float((err[big] / ref[big]).max()) if bool(big.any()) else 0.0
+            print(f"  {name}: max_abs_err={float(err.max()) if err.numel() else 0.0} "
+                  f"max_rel_err={rel} (where |torch| > atol) against rtol={rtol} "
+                  f"atol={atol}", flush=True)
+    if sa is None:
+        check(sb is None, f"{name}: stats on one side only")
+        return
     da, db = sa.as_dict(), sb.as_dict()
     da.pop("substrate"), db.pop("substrate")
+    if dense_m is not None and da != db:
+        ra, rb = da["rounds"], db["rounds"]
+        print(f"  {name}: rounds {ra} vs {rb}, edges_touched "
+              f"{da['edges_touched']} vs {db['edges_touched']}", flush=True)
+        check(abs(ra - rb) <= 1, f"{name}: rounds differ by more than one")
+        for d in (da, db):
+            check(d["dense_rounds"] == d["rounds"] and d["sparse_rounds"] == 0
+                  and d["edges_touched"] == d["dense_rounds"] * dense_m,
+                  f"{name}: rounds not all dense, each charging m = {dense_m}")
+            for k in ("rounds", "dense_rounds", "edges_touched"):
+                d.pop(k)
     check(da == db, f"{name}: RunStats differ: {da} vs {db}")
 
 
@@ -317,13 +390,194 @@ def small_check(torch, np, tc, algos, gen_mod):
     for i, name in enumerate(("bfs", "sssp", "cc", "pr")):
         (la, sa), (lb, sb) = res["cuda"][i], res["cpu"][i]
         compare_runs(torch, f"small {name}", (la, sa, 0, 0), (lb, sb, 0, 0),
-                     exact=name != "pr")
+                     PR_TOL if name == "pr" else None)
+
+
+# ---- phases 7-9: the paper suite's kernels and algorithms -------------------
+
+
+def int_add_cases(torch, gsym, gen):
+    """edge_relax's int32 add, unweighted, as kcore's decrements run it on
+    the symmetrized graph: vertex mask (push) and per-slot mask (relax)."""
+    dev = gsym.device
+    ones = torch.ones(gsym.n_pad, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(gsym.n_pad, dtype=torch.int32, device=dev)
+    vmask = torch.rand(gsym.n_pad, generator=gen, device=dev) < 0.5
+    vmask[gsym.sentinel] = False
+    smask = torch.rand(gsym.m_pad, generator=gen, device=dev) < 0.5
+    csr = dict(src=gsym.src_idx, dst=gsym.col_idx, w=gsym.edge_w, src_val=ones,
+               out_init=zeros, kind="add", use_weight=False)
+    return [("push i32 add unweighted vertex-mask (sym)", dict(**csr, mask=vmask,
+                                                               vertex_mask=True)),
+            ("relax i32 add unweighted slot-mask (sym)", dict(**csr, mask=smask,
+                                                              vertex_mask=False))]
+
+
+def oriented_chunks(torch, tri, g):
+    """The oriented adjacency of ``g`` on the card, its edge list padded to
+    whole chunks, and each chunk's candidate mass (row lengths of its
+    sources)."""
+    adj, osrc, odst = tri.oriented_adjacency(g)
+    ne = osrc.shape[0]
+    pad = -ne % INTERSECT_CHUNK
+    fill = torch.full((pad,), g.sentinel, dtype=torch.int32, device=g.device)
+    osrc, odst = torch.cat([osrc, fill]), torch.cat([odst, fill])
+    row_len = (adj != g.sentinel).sum(1, dtype=torch.int64)
+    work = row_len[osrc.long()].view(-1, INTERSECT_CHUNK).sum(1)
+    return adj, osrc, odst, row_len, work, ne
+
+
+def intersect_cases(torch, tri, g_web, g_kron):
+    """(name, adj, src, dst, row_len, sentinel): the web graph's median
+    chunk by candidate mass, kron's heaviest chunk (its hubs), and a tail
+    chunk of the web list's last 1,024 edges padded with sentinels."""
+    cases = []
+    for label, g in (("web", g_web), ("kron", g_kron)):
+        adj, osrc, odst, row_len, work, ne = oriented_chunks(torch, tri, g)
+        if label == "web":
+            c = int(torch.argsort(work)[work.shape[0] // 2])
+            name = f"web chunk {c} (median candidate mass)"
+        else:
+            c = int(torch.argmax(work))
+            name = f"kron chunk {c} (heaviest: hubs)"
+        sl = slice(c * INTERSECT_CHUNK, (c + 1) * INTERSECT_CHUNK)
+        cases.append((name, adj, osrc[sl], odst[sl], row_len, g.sentinel))
+        if label == "web":
+            k = min(ne, 1024)
+            fill = torch.full((INTERSECT_CHUNK - k,), g.sentinel, dtype=torch.int32,
+                              device=g.device)
+            cases.append(("web tail (1,024 edges, 31,744 padding)", adj,
+                          torch.cat([osrc[ne - k:ne], fill]),
+                          torch.cat([odst[ne - k:ne], fill]), row_len, g.sentinel))
+        print(f"  oriented {label}: ne={ne} dmax={adj.shape[1]} "
+              f"chunks={osrc.shape[0] // INTERSECT_CHUNK}", flush=True)
+    return cases
+
+
+def run_intersect_case(torch, gk, name, adj, src, dst, row_len, sentinel):
+    def kernel():
+        return gk.intersect_count(adj, src, dst, sentinel=sentinel)
+
+    def plain():
+        return gk.intersect_ref(adj, src, dst, sentinel)
+
+    before = gk.intersect_count.launches
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check(gk.intersect_count.launches == before + 1, f"{name}: no launch counted")
+    check(got.dtype == want.dtype == torch.int32 and got.shape == (),
+          f"intersect {name}: dtype/shape")
+    count = int(want)
+    check(int(got) == count, f"intersect {name}: kernel {int(got)} != plain {count}")
+    # library yardstick: the search step alone, on the ready gathered rows
+    nu, nv = adj[src.long()], adj[dst.long()]
+    t_k = cuda_ms(torch, kernel)
+    t_p = cuda_ms(torch, plain)
+    t_l = cuda_ms(torch, lambda: torch.searchsorted(nv, nu))
+    del nu, nv
+    # bound: src/dst once, each touched row's real entries once, the count;
+    # operations: one compare per probe of each candidate's search
+    rows = torch.unique(torch.cat([src, dst]).long())
+    rows = rows[rows != sentinel]
+    lens = row_len[rows]
+    nbytes = 8 * src.shape[0] + 4 * int(lens.sum()) + 4
+    ls, ld = row_len[src.long()], row_len[dst.long()]
+    probes = int((ls * torch.ceil(torch.log2(ld.double() + 1)).long()).sum())
+    b_ms, b_by = bound_ms(nbytes, probes)
+    return dict(case=name, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=abs(int(got) - count), compare="bitwise",
+                count=count, edges=int((src != sentinel).sum()), dmax=adj.shape[1],
+                bytes=nbytes, probes=probes)
+
+
+def small_suite_check(torch, np, tc, suite, gen_mod):
+    """kcore, bc and tc on the quickstart graph on the card against the
+    plain version on the CPU, which the CPU tests hold against the JAX
+    package."""
+    kcore, bc, tri = suite
+    src, dst, n = gen_mod.web_crawl_like(16, 5, 8, 2, seed=0)
+    w = gen_mod.random_weights(len(src), seed=1)
+    source = int(np.argmax(np.bincount(src, minlength=n)))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        g = tc.from_coo(src, dst, n, w, build_csc=True, device=dev)
+        gs = tc.from_coo(src, dst, n, symmetrize=True, device=dev)
+        res[dev] = {"kcore_peel": kcore.kcore_peel(gs, 3),
+                    "kcore_dd_sparse": kcore.kcore_dd_sparse(gs, 3),
+                    "core_numbers": (kcore.core_numbers(gs, 16), None),
+                    "bc": bc.bc_brandes(g, source),
+                    "tc": tri.tc_count(gs)}
+    for name in res["cuda"]:
+        (la, sa), (lb, sb) = res["cuda"][name], res["cpu"][name]
+        compare_runs(torch, f"small {name}", (la, sa, 0, 0), (lb, sb, 0, 0),
+                     BC_TOL if name == "bc" else None)
+
+
+def web_suite_runs(suite, g, gsym, source):
+    kcore, bc, tri = suite
+    return {
+        "kcore_peel(k=3)": Run(lambda: kcore.kcore_peel(gsym, 3)),
+        "kcore_dd_sparse(k=3)": Run(lambda: kcore.kcore_dd_sparse(gsym, 3)),
+        "kcore_dd_sparse(k=64)": Run(lambda: kcore.kcore_dd_sparse(gsym, 64)),
+        "kcore_dd_sparse(k=64,fused=False)":
+            Run(lambda: kcore.kcore_dd_sparse(gsym, 64, fused=False)),
+        "core_numbers(k_max=64)": Run(lambda: (kcore.core_numbers(gsym, 64), None)),
+        "bc_brandes": Run(lambda: bc.bc_brandes(g, source), BC_TOL),
+        "tc_count": Run(lambda: tri.tc_count(gsym)),
+    }
+
+
+def kron_suite_runs(algos, suite, g, g_unw, gsym, source):
+    """The seven calls of ``examples/paper_suite.py:run_input``."""
+    bfs, sssp, cc, pagerank = algos
+    kcore, bc, tri = suite
+    return {
+        "bfs_dd_sparse": Run(lambda: bfs.bfs_dd_sparse(g_unw, source)),
+        "sssp_delta": Run(lambda: sssp.sssp_delta(g, source)),
+        "cc_pointer_jump": Run(lambda: cc.cc_pointer_jump(gsym)),
+        "pr_push": Run(lambda: pagerank.pr_push(gsym), PR_TOL, dense_m=gsym.m),
+        "kcore_peel(k=3)": Run(lambda: kcore.kcore_peel(gsym, 3)),
+        "bc_brandes": Run(lambda: bc.bc_brandes(g, source), BC_TOL),
+        "tc_count": Run(lambda: tri.tc_count(gsym)),
+    }
+
+
+def run_suite_both(torch, gk, ops, label, runs, expect):
+    """One path: "cuda" with the counts set to 0 just before and read just
+    after, then "torch"; compares every run.  Returns the cuda launches."""
+    gk.reset_launches()
+    cuda_runs = run_path(torch, runs, "cuda", ops)
+    launches = gk.launch_counts()
+    print(f"{label} launches: {json.dumps(launches)}", flush=True)
+    for k in expect:
+        check(launches[k] > 0, f"{label}: kernel {k} was not launched")
+    torch_runs = run_path(torch, runs, "torch", ops)
+    check(gk.launch_counts() == launches, f"{label}: the torch substrate launched a kernel")
+    for name, run in runs.items():
+        compare_runs(torch, f"{label} {name}", cuda_runs[name], torch_runs[name],
+                     run.tol, run.dense_m)
+    return launches, cuda_runs, torch_runs
+
+
+def bc_hazard(torch, ops, bc_mod, g, source, runs_by_sub):
+    """bc's sigma is f32 path counts: print the non-finite entries of
+    sigma and of the scores under each substrate."""
+    for sub, runs in runs_by_sub.items():
+        with ops.substrate_scope(sub):
+            levels, _, sigma = bc_mod.brandes_forward(g, source)
+        score = runs["bc_brandes"][0]
+        print(f"  bc {sub}: levels={levels} sigma_nonfinite="
+              f"{int((~torch.isfinite(sigma)).sum())} sigma_max={float(sigma.max())} "
+              f"bc_nonfinite={int((~torch.isfinite(score)).sum())} "
+              f"bc_max={float(score[torch.isfinite(score)].max())}", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--communities", type=int, default=512,
                     help="web_crawl_like communities (the depth; default 512)")
+    ap.add_argument("--kron-scale", type=int, default=20,
+                    help="log2 vertices of the low-diameter kron input (default 20)")
     args = ap.parse_args()
 
     import torch
@@ -339,11 +593,13 @@ def main() -> int:
     import repro_torch as tc
     from repro_torch.core import frontier as fr
     from repro_torch.core import operators as ops
-    from repro_torch.core.algorithms import bfs, cc, pagerank, sssp
+    from repro_torch.core.algorithms import bc, bfs, cc, kcore, pagerank, sssp
+    from repro_torch.core.algorithms import tc as tri
     from repro_torch.graphs import generators as gen_mod
     from repro_torch.kernels import graph_ops as gk
     from repro_torch.kernels.graph_ops import build
     algos = (bfs, sssp, cc, pagerank)
+    suite = (kcore, bc, tri)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -397,39 +653,106 @@ def main() -> int:
     print("small: card == cpu on the quickstart graph", flush=True)
 
     # 6. the main path: counts set to 0 just before, read just after
+    main_runs = main_path_runs(algos, g, gsym, source)
     gk.reset_launches()
-    cuda_runs = main_path(torch, algos, g, gsym, source, "cuda", ops)
+    cuda_runs = run_path(torch, main_runs, "cuda", ops)
     launches = gk.launch_counts()
     print(f"main path launches: {json.dumps(launches)}", flush=True)
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
-    torch_runs = main_path(torch, algos, g, gsym, source, "torch", ops)
+    for k in ("edge_relax", "advance"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    torch_runs = run_path(torch, main_runs, "torch", ops)
     check(gk.launch_counts() == launches, "the torch substrate launched a kernel")
-    for name in cuda_runs:
-        compare_runs(torch, name, cuda_runs[name], torch_runs[name],
-                     exact=not name.startswith("pr_"))
+    for name, run in main_runs.items():
+        compare_runs(torch, name, cuda_runs[name], torch_runs[name], run.tol)
     dist = cuda_runs["bfs_dd_sparse"][0]
     rank = cuda_runs["pr_push"][0]
     check(float(dist[source]) == 0.0 and int((dist < 1e30).sum()) > 1, "bfs reached nothing")
+    check(all(bool(torch.isfinite(cuda_runs[k][0]).all()) for k in ("pr_push", "pr_pull")),
+          "non-finite ranks")
     check(abs(float(rank.double().sum()) - 1.0) < 1e-3, "pagerank does not sum to 1")
     print("main path: cuda == torch (labels bitwise, pagerank allclose, RunStats equal)",
           flush=True)
 
+    # 7. the suite's kernels: int32 add at the symmetrized graph's shapes,
+    # then the kron input and intersect on both graphs' oriented lists
+    for name, kw in int_add_cases(torch, gsym, rng):
+        row = run_edge_relax_case(torch, gk, name, kw)
+        relax_rows.append(row)
+        print("  edge_relax " + json.dumps(row), flush=True)
+    t0 = time.perf_counter()
+    ksrc, kdst, kn = gen_mod.table3_suite(args.kron_scale - 10)["kron30"]()
+    t_gen = time.perf_counter() - t0
+    kweights = gen_mod.random_weights(len(ksrc), seed=7)
+    kg = tc.from_coo(ksrc, kdst, kn, kweights, build_csc=True)
+    kg_unw = tc.from_coo(ksrc, kdst, kn, build_csc=True)
+    kgsym = tc.from_coo(ksrc, kdst, kn, symmetrize=True, build_csc=True)
+    torch.cuda.synchronize()
+    del ksrc, kdst, kweights
+    ksource = int(np.argmax(np.bincount(kg.src_idx[: kg.m].cpu().numpy(), minlength=kn)))
+    print(f"kron: scale={args.kron_scale} n={kg.n} m={kg.m} sym m={kgsym.m} "
+          f"source={ksource} host build {time.perf_counter() - t0} s "
+          f"(generate {t_gen})", flush=True)
+    t0 = time.perf_counter()
+    inter_rows = []
+    for case in intersect_cases(torch, tri, gsym, kgsym):
+        row = run_intersect_case(torch, gk, *case)
+        inter_rows.append(row)
+        print("  intersect " + json.dumps(row), flush=True)
+    del case  # it holds an oriented adjacency on the card
+    torch.cuda.empty_cache()
+    print(f"intersect cases: {time.perf_counter() - t0} s (two oriented "
+          f"adjacencies built on the host)", flush=True)
+
+    # 8. the paper suite's new algorithms on the web graph
+    small_suite_check(torch, np, tc, suite, gen_mod)
+    print("small: card == cpu for kcore, bc and tc on the quickstart graph", flush=True)
+    web_launches, web_cuda, web_torch = run_suite_both(
+        torch, gk, ops, "web suite", web_suite_runs(suite, g, gsym, source),
+        ("edge_relax", "advance", "intersect"))
+    bc_hazard(torch, ops, bc, g, source, {"cuda": web_cuda, "torch": web_torch})
+    alive64 = web_cuda["kcore_dd_sparse(k=64)"][0]
+    check(bool(alive64.any()) and torch.equal(
+        alive64, web_cuda["core_numbers(k_max=64)"][0] >= 64),
+        "kcore(64) disagrees with core_numbers")
+    check(web_cuda["tc_count"][0] > 0, "no triangles on the web graph")
+    print(f"web suite: cuda == torch; kcore(64) keeps {int(alive64.sum())} of {gsym.n}",
+          flush=True)
+    del web_cuda, web_torch
+
+    # 9. the seven paper benchmarks on the low-diameter kron input
+    kron_launches, kron_cuda, kron_torch = run_suite_both(
+        torch, gk, ops, "kron suite",
+        kron_suite_runs(algos, suite, kg, kg_unw, kgsym, ksource),
+        ("edge_relax", "advance", "intersect"))
+    bc_hazard(torch, ops, bc, kg, ksource, {"cuda": kron_cuda, "torch": kron_torch})
+    check(kron_cuda["tc_count"][0] > 0, "no triangles on kron")
+    check(bool(torch.isfinite(kron_cuda["pr_push"][0]).all()), "kron: non-finite ranks")
+    print("kron suite: cuda == torch (labels bitwise, pagerank and bc allclose, "
+          "RunStats equal but for pagerank's round slack)", flush=True)
+    total = {k: launches[k] + web_launches[k] + kron_launches[k] for k in launches}
+
     src_file = "src/repro_torch/kernels/graph_ops/csrc/graph_ops.cu"
-    main_relax, main_adv = relax_rows[0], adv_rows[1]
+    main_relax, main_adv, main_inter = relax_rows[0], adv_rows[1], inter_rows[0]
     kernels = [
         dict(name="edge_relax", route="cuda", source=src_file,
              replaces="src/repro/kernels/graph_ops/graph_ops.py:65",
-             launches=launches["edge_relax"], max_abs_err=max(r["max_abs_err"] for r in relax_rows),
+             launches=total["edge_relax"], max_abs_err=max(r["max_abs_err"] for r in relax_rows),
              ms=main_relax["ms"], plain_ms=main_relax["plain_ms"],
              bound_ms=main_relax["bound_ms"], bound_by=main_relax["bound_by"],
              library_ms=main_relax["library_ms"]),
         dict(name="advance", route="cuda", source=src_file,
              replaces="src/repro/kernels/graph_ops/graph_ops.py:162",
-             launches=launches["advance"], max_abs_err=0.0,
+             launches=total["advance"], max_abs_err=0.0,
              ms=main_adv["ms"], plain_ms=main_adv["plain_ms"],
              bound_ms=main_adv["bound_ms"], bound_by=main_adv["bound_by"],
              library_ms=main_adv["library_ms"]),
+        dict(name="intersect", route="cuda", source=src_file,
+             replaces="src/repro/kernels/graph_ops/graph_ops.py:117",
+             launches=total["intersect"],
+             max_abs_err=max(r["max_abs_err"] for r in inter_rows),
+             ms=main_inter["ms"], plain_ms=main_inter["plain_ms"],
+             bound_ms=main_inter["bound_ms"], bound_by=main_inter["bound_by"],
+             library_ms=main_inter["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

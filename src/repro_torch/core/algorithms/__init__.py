@@ -1,1 +1,1 @@
-from . import bfs, cc, pagerank, sssp  # noqa: F401
+from . import bfs, sssp, cc, pagerank, kcore, bc, tc  # noqa: F401

@@ -29,6 +29,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import torch
+
 from . import frontier as fr
 from . import operators as ops
 from .graph import Graph
@@ -114,30 +116,48 @@ def _sparse_stretch(g, labels, mask, limit, *, step, capacity, budget,
             return labels, mask, scalars, k
 
 
-def _dense_stretch(g, labels, mask, limit, *, step, cutoff):
-    """Consecutive dense-fallback rounds, do-while.  Returns
-    ``(labels, mask, scalars, rounds)``."""
+def _dense_stretch(g, labels, mask, scalars, limit, *, step, cutoff,
+                   count_mass):
+    """Consecutive dense-fallback rounds, do-while, from the entry
+    ``scalars`` of the first round.  Returns ``(labels, mask, scalars,
+    rounds, mass)``: with ``count_mass``, ``mass`` is the sum of every
+    round's entry frontier edge mass (``scalars[3]``), kept on the device
+    in int64 and fetched once (``dense_cost="mass"``); else it is 0 and
+    nothing more is computed or fetched."""
     k = 0
+    mass = (torch.zeros((), dtype=torch.int64, device=mask.device)
+            if count_mass else None)
     while True:
+        if count_mass:
+            mass += scalars[3]
         labels, mask = step(g, labels, mask)
         k += 1
         scalars = fr.round_scalars(g, mask)
         if k >= limit or not bool(fr.dense_band(scalars, cutoff)):
-            return labels, mask, scalars, k
+            return labels, mask, scalars, k, int(mass) if count_mass else 0
 
 
 class SparseLadderEngine:
     """Dispatches rung stretches along a (capacity, budget) ladder
     (``fused=False`` dispatches one round at a time).  A sparse round
-    charges its budget to ``edges_touched``, a dense round m."""
+    charges its budget to ``edges_touched``; a dense round charges m
+    (``dense_cost="m"``) or its entry frontier's edge mass
+    (``dense_cost="mass"``, the peel-style work convention).  ``labels``
+    may be any object the steps thread through (kcore passes an
+    ``(alive, degree)`` pair); ``mask`` is the (n_pad,) bool frontier.
+    Both ladders are geometric with base 4, the reference's default."""
 
     def __init__(
         self,
         g: Graph,
         sparse_step: Callable,  # (g, labels, mask, capacity, budget) -> (labels, mask, esc)
         dense_step: Callable,   # (g, labels, frontier_mask) -> (labels, mask)
+        dense_cost: str = "m",
         fused: bool = True,
     ):
+        if dense_cost not in ("m", "mass"):
+            raise ValueError(f"dense_cost must be 'm' or 'mass', not {dense_cost!r}")
+        self.dense_cost = dense_cost
         self.fused = fused
         self._stretch_keys = set()
         self._round_keys = set()
@@ -164,12 +184,15 @@ class SparseLadderEngine:
             keys.add(key)
             self.stats.compiles += 1
 
-    def _settle(self, budget, k):
-        """Fold k rounds into RunStats: dense when ``budget`` is None."""
+    def _settle(self, budget, k, mass=0):
+        """Fold k rounds into RunStats: dense when ``budget`` is None, then
+        charged ``mass`` (their entry frontier mass) under
+        ``dense_cost="mass"``, else k·m."""
         self.stats.rounds += k
         if budget is None:
             self.stats.dense_rounds += k
-            self.stats.edges_touched += k * self.g.m
+            self.stats.edges_touched += (
+                mass if self.dense_cost == "mass" else k * self.g.m)
         else:
             self.stats.sparse_rounds += k
             self.stats.edges_touched += k * budget
@@ -197,10 +220,11 @@ class SparseLadderEngine:
             cap, budget, dense = self._pick(cap_need, mass_med)
             if dense:
                 self._note(self._stretch_keys, ("dense", *key_mode))
-                labels, mask, scalars, k = _dense_stretch(
-                    g, labels, mask, rounds_left, step=self._dense_fn,
-                    cutoff=self.sparse_cutoff)
-                self._settle(None, k)
+                labels, mask, scalars, k, mass = _dense_stretch(
+                    g, labels, mask, scalars, rounds_left,
+                    step=self._dense_fn, cutoff=self.sparse_cutoff,
+                    count_mass=self.dense_cost == "mass")
+                self._settle(None, k, mass)
             else:
                 self._note(self._stretch_keys,
                            ("sparse", cap, budget, *key_mode))
@@ -217,14 +241,15 @@ class SparseLadderEngine:
     def _run_per_round(self, labels, mask, max_rounds: int):
         g = self.g
         for _ in range(max_rounds):
-            count, cap_need, mass_med, _ = fr.round_scalars(g, mask).tolist()
+            count, cap_need, mass_med, mass_tot = fr.round_scalars(
+                g, mask).tolist()
             if count == 0:
                 break
             cap, budget, dense = self._pick(cap_need, mass_med)
             if dense:
                 self._note(self._round_keys, "dense")
                 labels, mask = self._dense_fn(g, labels, mask)
-                self._settle(None, 1)
+                self._settle(None, 1, mass_tot)
             else:
                 self._note(self._round_keys, (cap, budget))
                 labels, mask, _ = self._sparse_fn(

@@ -11,6 +11,7 @@ The operator layer of ``repro.core.operators``, single-``Graph`` branches:
   out-edge list under a per-slot validity mask.
 * ``sparse_round`` — compact → advance → relax.
 * ``direction_choice`` — Beamer's α/β heuristic.
+* ``intersect_batch`` — tc's oriented sorted-intersection count.
 
 Every relaxation lowers through a **substrate**:
 
@@ -26,8 +27,8 @@ Select with ``set_substrate`` / ``substrate_scope`` or per call with
 through the fixed-order ``det_scatter_add`` (plain torch) on both
 substrates, so float sums are bitwise reproducible.
 
-The tiered, sharded and batched branches and ``intersect_batch`` belong to
-later slices of the port; they raise ``NotImplementedError``.
+The tiered, sharded and batched branches belong to later slices of the
+port; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -244,10 +245,24 @@ def batched_push_dense(*args, **kwargs):
 batched_relax_batch = batched_push_dense
 
 
-def intersect_batch(*args, **kwargs):
-    raise NotImplementedError(
-        "intersect_batch (tc) is not ported yet "
-        "(ROADMAP queue 2: _intersect_kernel)")
+def intersect_batch(
+    adj: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    *,
+    sentinel: int,
+    substrate: str | None = None,
+) -> torch.Tensor:
+    """Oriented sorted-intersection count for a batch of oriented edges —
+    triangle counting's operator.  ``adj`` is the (n_pad, dmax) sorted
+    oriented adjacency (sentinel-padded rows, ``adj[sentinel]`` all
+    sentinel), ``src``/``dst`` the oriented endpoints (sentinel on padding
+    slots).  Returns the exact int32 sum of |N+(src_i) ∩ N+(dst_i)| as a
+    0-d tensor on the device, bitwise equal across substrates."""
+    sub = _resolve(substrate)
+    if sub == "cuda":
+        return gk.intersect_count(adj, src, dst, sentinel=sentinel)
+    return gk.intersect_ref(adj, src, dst, sentinel)
 
 
 def sparse_round(

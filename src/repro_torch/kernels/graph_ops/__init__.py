@@ -1,7 +1,13 @@
 """Graph edge-relaxation substrate: CUDA kernels (``ops``) and their plain
 torch versions (``ref``).  ``repro_torch.core.operators`` routes here."""
 
-from .ops import advance_frontier, edge_relax, launch_counts, reset_launches  # noqa: F401
+from .ops import (  # noqa: F401
+    advance_frontier,
+    edge_relax,
+    intersect_count,
+    launch_counts,
+    reset_launches,
+)
 from .ref import (  # noqa: F401
     KINDS,
     advance_ref,

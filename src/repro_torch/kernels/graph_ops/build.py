@@ -39,6 +39,7 @@ SIGNATURES = {
         "graph_ops_advance": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _P, _P, _P, _P, _P, _P, _P, _P], _I),
+        "graph_ops_intersect": ([_P, _I, _I, _P, _P, _LL, _I, _P, _P], _I),
         "graph_ops_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -33,6 +33,9 @@
 //       zeros) and NaNs sort by their bits, so the result is the same
 //       whatever order duplicates arrive in — bitwise equal to ref.py.
 //     * int32 min/max: native atomicMin/atomicMax.
+//     * int32 add (unweighted; kcore's degree decrements): native atomicAdd
+//       on int.  Integer sums are exact and wrap as the plain version's
+//       do, so the result is bitwise equal to it whatever the order.
 //     * f32 add: atomicAdd; its order varies from run to run (allclose only).
 //     * or: the byte (uint8 max, as in ref.py) is updated by an atomicCAS
 //       loop on the aligned 32-bit word that holds it; the wrapper checks
@@ -43,8 +46,9 @@
 //   take that read, so a seed beyond the neutral (+inf under min) is
 //   clamped exactly as the reference's neutral message clamps it; masked
 //   slots of int min/max and or are skipped (their neutral is the type's
-//   extreme), and masked slots of add are skipped (adding +0.0 only turns
-//   -0.0 into +0.0; add is compared allclose).
+//   extreme), and masked slots of add are skipped (int: adding 0 changes
+//   nothing; float: adding +0.0 only turns -0.0 into +0.0, and float add
+//   is compared allclose).
 //
 // ---------------------------------------------------------------------------
 // advance — replaces _advance_kernel / advance_pallas
@@ -69,6 +73,41 @@
 //   add-back (advance_add_offsets).  Then one thread per budget slot does
 //   the binary search and writes the five outputs (advance_expand).
 //   f_count and total are read on the device: no host sync.
+//
+// ---------------------------------------------------------------------------
+// intersect — replaces _intersect_kernel / intersect_pallas
+//   (src/repro/kernels/graph_ops/graph_ops.py).
+//
+//   Triangle counting's hot loop.  adj is the (n_rows, dmax) oriented
+//   adjacency: each row sorted ascending, real ids first, the rest the
+//   sentinel (n_rows - 1, which sorts last; adj[sentinel] is all
+//   sentinel).  For each oriented edge i it counts the entries w of
+//   adj[src[i]] with w != sentinel that occur in adj[dst[i]], and adds the
+//   int32 total over the batch into *count (zeroed by the wrapper).  Any
+//   correct membership test gives the reference's integer, so the result
+//   is bitwise equal to ref.intersect_ref.
+//
+//   Bound: device-memory bytes — src and dst once (8 B an edge) plus each
+//   adjacency row the batch touches, real entries only, 4 B each.  The
+//   operations (one compare per probe) are far below the card's rate, but
+//   the probes are dependent loads: each candidate takes about
+//   log2(len_d) + 1 serial reads of the target row, so a warp waits on
+//   latency unless many warps are in flight.
+//
+//   Design: the TPU kernel held all of adj in VMEM and carried the scalar
+//   across its sequential grid.  Here adj stays in device memory and each
+//   edge gathers its two rows: one warp per oriented edge (grid-stride
+//   over warps).  The warp first finds the target row's real length with
+//   coalesced 32-wide loads and a ballot for the first sentinel (a padded
+//   edge, src == dst == sentinel, finds 0 and costs one load).  The lanes
+//   then stride over the candidate row, stop at its first sentinel, and
+//   binary-search the target row's real prefix; the probed row is a few
+//   hundred bytes and stays in L1.  Each lane keeps its count across all
+//   of its warp's edges; one shuffle reduction and one atomicAdd per warp
+//   at the end.  Row indices outside [0, n_rows) contribute 0 (the
+//   reference's gather clamps them to the all-sentinel last row).  The
+//   oriented degree bounds every row by dmax, so one warp per edge is
+//   balanced enough; merge-path balancing of skewed rows is later work.
 // ---------------------------------------------------------------------------
 
 #include <cfloat>
@@ -151,6 +190,13 @@ struct Reducer<int, KIND_MAX> {
     if (msg <= *reinterpret_cast<volatile int*>(p)) return;
     atomicMax(p, msg);
   }
+};
+
+template <>
+struct Reducer<int, KIND_ADD> {
+  static constexpr bool kSkipMasked = true;
+  static __device__ __forceinline__ int neutral() { return 0; }
+  static __device__ __forceinline__ void apply(int* p, int msg) { atomicAdd(p, msg); }
 };
 
 template <>
@@ -332,6 +378,60 @@ __global__ void advance_expand(const int* __restrict__ f_idx, const int* __restr
   }
 }
 
+// ---- intersect ------------------------------------------------------------
+
+constexpr int kIntersectThreads = 256;
+
+__global__ void intersect_kernel(const int* __restrict__ adj, int n_rows, int dmax,
+                                 const int* __restrict__ src, const int* __restrict__ dst,
+                                 long long e, int sentinel, int* count) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long nwarps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  int hits = 0;
+  for (long long i = warp; i < e; i += nwarps) {
+    const int s = src[i];
+    const int d = dst[i];
+    if (s < 0 || s >= n_rows || d < 0 || d >= n_rows) continue;  // warp-uniform
+    const int* rs = adj + static_cast<long long>(s) * dmax;
+    const int* rd = adj + static_cast<long long>(d) * dmax;
+    // real length of the target row: index of its first sentinel
+    int len_d = dmax;
+    for (int base = 0; base < dmax; base += 32) {
+      const int j = base + lane;
+      const unsigned at_end = __ballot_sync(full, j < dmax && rd[j] == sentinel);
+      if (at_end) {
+        len_d = base + __ffs(at_end) - 1;
+        break;
+      }
+    }
+    if (len_d == 0) continue;
+    // candidates: the lanes stride over the source row up to its first sentinel
+    for (int base = 0; base < dmax; base += 32) {
+      const int j = base + lane;
+      const int w = j < dmax ? rs[j] : sentinel;
+      const bool live = w != sentinel;
+      if (live) {
+        int lo = 0, hi = len_d;  // lower bound of w in rd[0, len_d)
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (rd[mid] < w) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        hits += (lo < len_d && rd[lo] == w) ? 1 : 0;
+      }
+      if (__ballot_sync(full, !live)) break;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) hits += __shfl_down_sync(full, hits, o);
+  if (lane == 0 && hits != 0) atomicAdd(count, hits);
+}
+
 }  // namespace
 
 extern "C" {
@@ -359,6 +459,7 @@ int graph_ops_edge_relax(const void* src, const void* dst, const void* w, const 
   } else if (dtype == DT_I32 && !uw) {
     if (kind == KIND_MIN) return launch_relax_vm<int, KIND_MIN, false>(vm, s, d, ww, mk, src_val, out, m, st);
     if (kind == KIND_MAX) return launch_relax_vm<int, KIND_MAX, false>(vm, s, d, ww, mk, src_val, out, m, st);
+    if (kind == KIND_ADD) return launch_relax_vm<int, KIND_ADD, false>(vm, s, d, ww, mk, src_val, out, m, st);
   } else if (dtype == DT_U8 && !uw && kind == KIND_OR) {
     return launch_relax_vm<uint8_t, KIND_OR, false>(vm, s, d, ww, mk, src_val, out, m, st);
   }
@@ -396,6 +497,19 @@ int graph_ops_advance(const void* f_idx, const void* f_count, const void* out_de
       fi, cum, cap, tot, static_cast<const int*>(row_ptr), static_cast<const int*>(col_idx),
       static_cast<const float*>(edge_w), budget, sentinel, m_pad, static_cast<int*>(out_src),
       static_cast<int*>(out_dst), static_cast<float*>(out_w), static_cast<uint8_t*>(out_valid));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// adj: (n_rows, dmax) int32, rows sorted, sentinel-padded; src, dst: (e,)
+// int32, e > 0; count: (1,) int32, zeroed by the caller, receives the sum.
+int graph_ops_intersect(const void* adj, int n_rows, int dmax, const void* src, const void* dst,
+                        long long e, int sentinel, void* count, void* stream) {
+  const long long warps_per_block = kIntersectThreads / 32;
+  const long long want = (e + warps_per_block - 1) / warps_per_block;
+  const int blocks = static_cast<int>(want < kMaxBlocks ? (want > 0 ? want : 1) : kMaxBlocks);
+  intersect_kernel<<<blocks, kIntersectThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(adj), n_rows, dmax, static_cast<const int*>(src),
+      static_cast<const int*>(dst), e, sentinel, static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 

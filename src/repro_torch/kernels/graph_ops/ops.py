@@ -21,6 +21,7 @@ _RELAX_TYPES = {
     (torch.float32, "min"): True, (torch.float32, "max"): True,
     (torch.float32, "add"): True,
     (torch.int32, "min"): False, (torch.int32, "max"): False,
+    (torch.int32, "add"): False,
     (torch.uint8, "or"): False,
 }
 
@@ -136,12 +137,49 @@ def advance_frontier(f_idx, f_count, out_deg, row_ptr, col_idx, edge_w, *,
 advance_frontier.launches = 0
 
 
+def intersect_count(adj, src, dst, *, sentinel: int):
+    """Oriented sorted-intersection count over an edge batch: the int32
+    total of |N+(src_i) ∩ N+(dst_i)| as a 0-d tensor on ``adj``'s device.
+    ``adj`` is the (n_pad, dmax) sorted, sentinel-padded oriented
+    adjacency with ``sentinel = n_pad - 1``."""
+    if adj.device.type == "cpu":
+        return ref.intersect_ref(adj, src, dst, sentinel)
+    dev = adj.device
+    if dev.type != "cuda":
+        raise ValueError(f"intersect_count runs on cuda or cpu tensors, not {dev}")
+    if adj.dim() != 2 or adj.shape[1] < 1 or src.dim() != 1:
+        raise ValueError(f"bad intersect shapes: adj {tuple(adj.shape)}, "
+                         f"src {tuple(src.shape)}")
+    n_rows, dmax = adj.shape
+    if sentinel != n_rows - 1:
+        raise ValueError(f"sentinel {sentinel} is not the last row {n_rows - 1}")
+    e = src.shape[0]
+    _expect(adj, "adj", torch.int32, (n_rows, dmax), dev)
+    _expect(src, "src", torch.int32, (e,), dev)
+    _expect(dst, "dst", torch.int32, (e,), dev)
+    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if e == 0:
+        return count[0]
+    lib = build.load("graph_ops")
+    rc = lib.graph_ops_intersect(adj.data_ptr(), n_rows, dmax, src.data_ptr(),
+                                 dst.data_ptr(), e, sentinel, count.data_ptr(),
+                                 _stream())
+    build.check(lib, rc, "intersect_count")
+    intersect_count.launches += 1
+    return count[0]
+
+
+intersect_count.launches = 0
+
+_KERNELS = {"edge_relax": edge_relax, "advance": advance_frontier,
+            "intersect": intersect_count}
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    edge_relax.launches = 0
-    advance_frontier.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"edge_relax": edge_relax.launches,
-            "advance": advance_frontier.launches}
+    return {name: fn.launches for name, fn in _KERNELS.items()}

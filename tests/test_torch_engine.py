@@ -22,6 +22,7 @@ from repro.core import frontier as jfr  # noqa: E402
 from repro.core import operators as jops  # noqa: E402
 from repro.core.algorithms import bfs as jbfs  # noqa: E402
 from repro.core.algorithms import cc as jcc  # noqa: E402
+from repro.core.algorithms import kcore as jkcore  # noqa: E402
 from repro.core.algorithms import sssp as jsssp  # noqa: E402
 from repro.core.graph import from_coo as jfrom_coo  # noqa: E402
 from repro.graphs import generators as gen  # noqa: E402
@@ -30,6 +31,7 @@ from repro_torch.core import frontier as tfr  # noqa: E402
 from repro_torch.core import operators as tops  # noqa: E402
 from repro_torch.core.algorithms import bfs as tbfs  # noqa: E402
 from repro_torch.core.algorithms import cc as tcc  # noqa: E402
+from repro_torch.core.algorithms import kcore as tkcore  # noqa: E402
 from repro_torch.core.algorithms import sssp as tsssp  # noqa: E402
 from test_torch_graph import GRAPHS, port_graph  # noqa: E402
 
@@ -160,6 +162,43 @@ def test_sparse_ladder_engine_matches_jax(algo, gname):
     assert results[True][1].rounds > 0
 
 
+@pytest.mark.parametrize("dense_cost", ["m", "mass"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_sparse_ladder_engine_dense_cost(fused, dense_cost):
+    """kcore's steps under both dense-round charges: ``"mass"`` charges a
+    dense round its entry frontier's edge mass, ``"m"`` charges m.  A k
+    above most degrees forces dense rounds, so the charge is taken;
+    labels and every counter equal the JAX engine's."""
+    src, dst, n = gen.rmat(7, 6, seed=8)
+    jg = jfrom_coo(src, dst, n, block_size=64, symmetrize=True)
+    tg = port_graph(jg)
+    k = 40
+    jdeg = jg.out_deg.astype(jnp.int32)
+    je = jeng.SparseLadderEngine(jg, jkcore._kcore_sparse_step(k),
+                                 jkcore._kcore_dense_step(k),
+                                 dense_cost=dense_cost, fused=fused)
+    (jalive, jd), _ = je.run((jg.valid_vertex_mask(), jdeg),
+                             jg.valid_vertex_mask() & (jdeg < k))
+    tdeg = tg.out_deg.clone()
+    te = teng.SparseLadderEngine(tg, tkcore._kcore_sparse_step(k),
+                                 tkcore._kcore_dense_step(k),
+                                 dense_cost=dense_cost, fused=fused)
+    (talive, td), _ = te.run((tg.valid_vertex_mask(), tdeg),
+                             tg.valid_vertex_mask() & (tdeg < k))
+    np.testing.assert_array_equal(np.asarray(jalive), talive.numpy())
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    stats_equal(je.stats, te.stats)
+    assert te.stats.dense_rounds > 0
+    if dense_cost == "mass":
+        assert te.stats.edges_touched < te.stats.dense_rounds * tg.m + \
+            te.stats.sparse_rounds * tg.m_pad
+    else:
+        assert te.stats.edges_touched >= te.stats.dense_rounds * tg.m
+    with pytest.raises(ValueError):
+        teng.SparseLadderEngine(tg, tkcore._kcore_sparse_step(k),
+                                tkcore._kcore_dense_step(k), dense_cost="edges")
+
+
 def test_engine_max_rounds_cuts_both_regimes():
     jg, tg = engine_graph("chain", sym=False)
     d0 = np.full(jg.n_pad, np.finfo(np.float32).max, np.float32)
@@ -215,6 +254,11 @@ def test_substrate_selection_api():
     with tops.deterministic_add_scope(True):
         assert tops.get_deterministic_add()
     assert not tops.get_deterministic_add()
-    for name in ("batched_push_dense", "batched_relax_batch", "intersect_batch"):
+    for name in ("batched_push_dense", "batched_relax_batch"):
         with pytest.raises(NotImplementedError):
             getattr(tops, name)()
+    adj = torch.tensor([[1, 3], [3, 3], [3, 3], [3, 3]], dtype=torch.int32)
+    pair = torch.tensor([0, 3], dtype=torch.int32)
+    for sub in tops.SUBSTRATES:
+        assert int(tops.intersect_batch(adj, pair, pair, sentinel=3,
+                                        substrate=sub)) == 1

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import frontier as jfr  # noqa: E402
 from repro.core import operators as jops  # noqa: E402
+from repro.core.algorithms import tc as jtc  # noqa: E402
 from repro.core.graph import from_coo as jfrom_coo  # noqa: E402
 from repro.kernels import graph_ops as jgk  # noqa: E402
 from repro.kernels.graph_ops import ref as jref  # noqa: E402
@@ -283,6 +284,81 @@ def test_sorted_lower_bound_and_intersect():
         tgk.intersect_ref(*T(adj, src, dst), 39))
 
 
+@pytest.mark.parametrize("mask", ["vertex", "slot"])
+def test_int32_add_bitwise(mask):
+    """kcore's degree decrements: unweighted int32 add, under the vertex
+    mask (push) and the per-slot mask (relax_edges), bitwise against both
+    JAX substrates."""
+    jg, tg = build("web_like")
+    rng = np.random.default_rng(13)
+    sv = rng.integers(-50, 50, jg.n_pad).astype(np.int32)
+    init = rng.integers(-1000, 1000, jg.n_pad).astype(np.int32)
+    if mask == "vertex":
+        keep = rng.random(jg.n_pad) < 0.5
+        keep[jg.sentinel] = False
+        jfn, tfn = jops.push_dense, tops.push_dense
+        jargs, targs = (jg, *J(sv, keep, init)), (tg, *T(sv, keep, init))
+    else:
+        keep = rng.random(jg.m_pad) < 0.5
+        jfn, tfn = jops.relax_edges, tops.relax_edges
+        jargs, targs = (jg, *J(sv, keep, init)), (tg, *T(sv, keep, init))
+    got = {sub: tfn(*targs, kind="add", use_weight=False, substrate=sub)
+           for sub in tops.SUBSTRATES}
+    assert got["cuda"].dtype == torch.int32
+    assert torch.equal(got["cuda"], got["torch"])
+    for sub in JAX_SUBSTRATES:
+        want = jfn(*jargs, kind="add", use_weight=False, substrate=sub)
+        assert_same(want, got["cuda"], f"int32 add/{mask}/{sub}")
+
+
+def sym_graph(name):
+    src, dst, n = GRAPHS[name]()
+    return jfrom_coo(src, dst, n, block_size=64, symmetrize=True)
+
+
+def intersect_batch_case(case):
+    """(adj, src, dst, sentinel) as numpy: an oriented adjacency and an
+    edge batch padded with sentinels to a multiple of 64."""
+    rng = np.random.default_rng(21)
+    gname = "web_like" if case in ("all_padding", "empty_rows") else case
+    jg = sym_graph(gname)
+    adj, osrc, odst = (np.array(x) for x in jtc.oriented_adjacency(jg))
+    sent = jg.sentinel
+    if case == "all_padding":
+        osrc = odst = np.full(128, sent, np.int32)
+    elif case == "empty_rows":
+        # endpoints whose oriented rows are empty, mixed with full ones
+        empty = np.flatnonzero(adj[:, 0] == sent)
+        full = np.flatnonzero(adj[:, 0] != sent)
+        osrc = np.concatenate([rng.choice(empty, 40), rng.choice(full, 40),
+                               rng.choice(full, 40)]).astype(np.int32)
+        odst = np.concatenate([rng.choice(full, 40), rng.choice(empty, 40),
+                               rng.choice(full, 40)]).astype(np.int32)
+    pad = -len(osrc) % 64
+    osrc = np.concatenate([osrc, np.full(pad, sent, np.int32)])
+    odst = np.concatenate([odst, np.full(pad, sent, np.int32)])
+    return adj, osrc, odst, sent
+
+
+@pytest.mark.parametrize("case", ["hub_leaves", "web_like", "erdos",
+                                  "all_padding", "empty_rows"])
+def test_intersect_count_matches_jax(case):
+    adj, src, dst, sent = intersect_batch_case(case)
+    want = int(jgk.intersect_count(*J(adj, src, dst), sentinel=sent))
+    assert want == int(jgk.intersect_ref(*J(adj, src, dst), sent))
+    got = tgk.intersect_count(*T(adj, src, dst), sentinel=sent)
+    assert got.dtype == torch.int32 and got.shape == ()
+    assert int(got) == want
+    for sub in tops.SUBSTRATES:
+        out = tops.intersect_batch(*T(adj, src, dst), sentinel=sent,
+                                   substrate=sub)
+        assert out.dtype == torch.int32 and int(out) == want
+    if case == "all_padding":
+        assert want == 0
+    elif case != "empty_rows":
+        assert want > 0
+
+
 def test_cpu_wrappers_take_plain_version_and_launch_nothing():
     jg, tg = build("hub_leaves")
     tgk.reset_launches()
@@ -298,7 +374,11 @@ def test_cpu_wrappers_take_plain_version_and_launch_nothing():
                            tg.edge_w, 256, tg.sentinel, tg.m_pad)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert tgk.launch_counts() == {"edge_relax": 0, "advance": 0}
+    adj, osrc, odst = (torch.from_numpy(np.array(x)) for x in
+                       jtc.oriented_adjacency(sym_graph("hub_leaves")))
+    assert torch.equal(tgk.intersect_count(adj, osrc, odst, sentinel=tg.sentinel),
+                       tgk.intersect_ref(adj, osrc, odst, tg.sentinel))
+    assert tgk.launch_counts() == {"edge_relax": 0, "advance": 0, "intersect": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -310,3 +390,5 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         tgk.advance_frontier(m, m[0], m, m, m, m.float(), budget=64,
                              sentinel=63, m_pad=64)
+    with pytest.raises(ValueError):
+        tgk.intersect_count(m.reshape(8, 8), m, m, sentinel=7)
