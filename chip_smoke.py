@@ -8,8 +8,9 @@ Phases, in order; any mismatch or exception ends the script with a
 non-zero exit before its last line:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. build: the kernels from ``src/repro_torch/kernels/graph_ops/csrc`` into
-   the git-ignored ``build/repro_torch``;
+2. build: every kernel library (``src/repro_torch/kernels/*/csrc/*.cu``:
+   graph_ops, flash_attention, spmm_bsr, embedding_bag), one ``nvcc`` each,
+   all at once, into the git-ignored ``build/repro_torch``;
 3. graph: ``web_crawl_like(512, 13, 16, 3)`` with random weights (about
    4.19 M vertices and 57 M edges), built as CSR+CSC and symmetrized
    (CSR+CSC, for cc and pagerank) on the card;
@@ -33,7 +34,31 @@ non-zero exit before its last line:
    under "cuda" (counts set to 0 just before, read just after), then
    "torch"; the quickstart graph on the card against the CPU first;
 9. paper suite on kron: the seven calls of ``paper_suite.run_input``
-   under both substrates, the same way.
+   under both substrates, the same way;
+10. the other kernels at full width, each against its plain version on the
+   card: bf16 flash attention against ``flash_attention_plain`` and
+   ``attention_ref`` within rtol 8e-3 (one bf16 ulp) + 1e-3 x rms(want),
+   since all three keep f32 sums and round once: flash attention at the attention
+   layers of h2o-danube-3-4b (32 heads, d_head 120, window 4096, S = 8192,
+   and once more at S = 32,768 against 256 sampled query rows per head)
+   and stablelm-3b (32 heads, d_head 80, causal, S = 4096); ``spmm_bsr`` on
+   ``web_crawl_like(16, 13, 16, 3)`` in block-ELL (the port's ``to_bsr``),
+   F = 128, f32, against the plain version (2e-4) and the edge list (4e-4);
+   ``embedding_bag`` on MIND's 2^23 x 64 f32 item table under its
+   serve_bulk (262,144 x 50) and serve_p99 (512 x 50) batches, sum and
+   mean, bitwise;
+11. the layer: ``layers.attention`` at h2o-danube-3-4b's full width (d_model
+   3840, B = 1, S = 8192, bf16), the flash branch (counts set to 0 just
+   before, read just after) against the plain softmax branch, within
+   8e-3 x |plain| + 5e-2 x the rms of the query row (the plain branch
+   rounds its probabilities and head outputs to bf16);
+12. the entry point: first each kernel on ``kernels_bench``'s own inputs
+   (f32 flash at d = 64, f32 SpMM at n = 512, the bag at D = 128, and in
+   bf16 and at D = 256) against its plain version (f32 within 2e-5, bags
+   bitwise);
+   then ``repro_torch.benchmarks.kernels_bench.run()`` (counts set to 0
+   just before, read just after): the JAX suite's rows, the cuda BFS row
+   on the cuda substrate, all six kernels launched.
 
 Agreement: labels, alive masks, core numbers and triangle counts bitwise;
 pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
@@ -44,6 +69,12 @@ is printed beside it); RunStats equal except ``substrate`` and, in phase
 residual-threshold exit reads float sums taken in another order (seen on
 kron: 143 rounds under "cuda", 142 under "torch").  Its rounds are all
 dense then, each charging m, and that is checked on both sides.
+
+Each kernel row prints ``ms`` (CUDA events, 5 reps after a warm-up),
+``plain_ms``, ``library_ms`` (one PyTorch call for the same function, timed
+as a yardstick only) and ``bound_ms`` / ``bound_by``: bytes over 3.35 TB/s
+against operations over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 attention,
+whose work could take the tensor cores.
 
 It prints the kernels line (one JSON object) and, last, the device line.
 It exits non-zero without a result when no CUDA device is present or when
@@ -57,16 +88,24 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from collections import namedtuple
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
+H100_BF16_TC_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense
 ADD_RTOL_OF_ABS_SUM = 1e-5     # float add: |kernel - plain| <= 1e-5 * sum|terms|
 PR_TOL = (1e-4, 1e-10)         # (rtol, atol)
 BC_TOL = (1e-3, 1e-4)          # float atomicAdd order in sigma and delta
 INTERSECT_CHUNK = 32_768       # tc_count's edge_chunk
+# the rows of the JAX package's kernels suite (benchmarks/kernels_bench.py),
+# its substrates "jnp" / "pallas" named by the port's "torch" / "cuda"
+KERNELS_BENCH_ROWS = (
+    "kern/flash_attn_256", "kern/spmm_bsr_512", "kern/embedding_bag_32x10",
+    *(f"kern/graph_{op}[{sub}]" for sub in ("torch", "cuda")
+      for op in ("push", "pull", "advance_relax", "intersect", "bfs_e2e")))
 
 # one run of a path: ``fn() -> (labels, stats)``; ``tol`` is (rtol, atol)
 # for float scores, None for bitwise; ``dense_m`` is the graph's m for a
@@ -102,11 +141,11 @@ def cuda_ms(torch, fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, ops_per_s=H100_F32_OPS_PER_S):
     """Least time for the work: the larger of bytes over the memory rate
-    and operations over the float32 rate."""
+    and operations over the rate of their route (float32 by default)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = nops / H100_F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -572,6 +611,324 @@ def bc_hazard(torch, ops, bc_mod, g, source, runs_by_sub):
               f"bc_max={float(score[torch.isfinite(score)].max())}", flush=True)
 
 
+# ---- phases 10-12: flash attention, spmm_bsr, embedding_bag, the layer and --
+# ---- the kernels_bench entry point -------------------------------------------
+
+DEV = "cuda"
+
+# (name, heads, S, d_head, window): the attention layers of the repo's
+# configs at B = 1 (configs/h2o_danube3_4b.py, configs/stablelm_3b.py), bf16,
+# causal; BH = heads (GQA's K/V already expanded, as the layer does)
+FLASH_CASES = (("h2o-danube-3-4b S=8192", 32, 8192, 120, 4096),
+               ("stablelm-3b S=4096", 32, 4096, 80, None))
+FLASH_LONG = ("h2o-danube-3-4b S=32768 (prefill_32k)", 32, 32768, 120, 4096)
+FLASH_SAMPLED_ROWS = 256
+# bf16 flash attention against its plain versions: both keep f32 scores and
+# sums and round the output once, so they differ by the final rounding:
+# rtol 8e-3 (2^-7, one bf16 ulp at worst) plus an atol of 1e-3 x rms(want)
+# (the H100 read at most 3.1e-6 x rms)
+FLASH_RTOL, FLASH_ATOL_RMS = 8e-3, 1e-3
+# the layer's flash branch against its plain branch, which rounds the
+# probabilities and the head outputs to bf16 (about 2^-9 of a row's scale
+# each): rtol 8e-3 plus 5e-2 x the rms of that query row (the H100 read
+# 2.76e-2 at danube's full width)
+LAYER_RTOL, LAYER_ATOL_RMS = 8e-3, 5e-2
+F32_TOL = 2e-5         # the reference's f32 tolerance (tests/test_kernels.py TOL)
+SPMM_TOL = 2e-5 * 10   # the reference's f32 SpMM tolerance against its oracle
+SPMM_COO_TOL = 2e-5 * 20
+EB_ORACLE_TOL = 2e-5 * 5
+# MIND (configs/mind.py): item table 2^23 x 64 f32, hist_len 50; batches
+MIND_ITEMS, MIND_DIM, MIND_HIST = 1 << 23, 64, 50
+MIND_BATCHES = (("serve_bulk", 262_144), ("serve_p99", 512))
+# h2o-danube-3-4b's attention (configs/h2o_danube3_4b.py FULL)
+DANUBE = dict(d_model=3840, n_heads=32, n_kv_heads=8, d_head=120,
+              rope_theta=1e4, sliding_window=4096)
+LAYER_S = 8192
+
+
+def attention_pairs(s, window):
+    """Unmasked (query, key) pairs of one causal head: sum of min(q+1, window)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def within(torch, got, want, rtol, atol_rms, dim=None):
+    """(ok, max |got - want|, reading): |got - want| <= rtol |want| +
+    atol_rms x rms(want), the rms over all of want (``dim=None``) or over
+    ``dim``.  The reading is the atol each element needs, in units of that
+    rms: max((|got - want| - rtol |want|) / rms)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = (want.square().mean() if dim is None
+           else want.square().mean(dim, keepdim=True)).sqrt().clamp_min(1e-30)
+    need = float(((err - rtol * want.abs()) / rms).max())
+    ok = bool(torch.isfinite(got).all()) and need <= atol_rms
+    return ok, float(err.max()), need
+
+
+def flash_case(torch, fk, fref, name, bh, s, d, window, gen, sampled=False):
+    """The kernel against the plain oracle (all rows, or sampled rows at a
+    length whose S x S scores do not fit), timed beside the plain version
+    and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=DEV).to(torch.bfloat16)
+               for _ in range(3))
+    kw = dict(causal=True, window=window)
+
+    def kernel():
+        return fk.flash_attention_bhsd(q, k, v, **kw)
+
+    before = fk.flash_attention_bhsd.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    check(fk.flash_attention_bhsd.launches == before + 1, f"flash {name}: no launch counted")
+    limit = f"rtol {FLASH_RTOL} + {FLASH_ATOL_RMS} x rms(want)"
+    if sampled:
+        rows = torch.randperm(s, generator=gen, device=DEV)[:FLASH_SAMPLED_ROWS - 2]
+        rows = torch.cat([rows, torch.tensor([0, s - 1], device=DEV)]).sort().values
+        wants = {"attention_ref": fref.attention_ref(q, k, v, rows=rows, **kw)}
+        got_rows = got[:, rows]
+    else:
+        wants = {"plain": fref.flash_attention_plain(q, k, v, **kw),
+                 "attention_ref": fref.attention_ref(q, k, v, **kw)}
+        got_rows = got
+    check(got.dtype == torch.bfloat16 and got.shape == q.shape, f"flash {name}: dtype/shape")
+    row = dict(case=name)
+    for against, want in wants.items():
+        ok, err, need = within(torch, got_rows, want, FLASH_RTOL, FLASH_ATOL_RMS)
+        rms = float(want.float().square().mean().sqrt())
+        check(ok, f"flash {name}: outside {limit} of {against} (max err {err}, atol "
+                  f"needed {need} x rms, rms {rms})")
+        row[f"max_abs_err_{against}"] = err
+        row[f"atol_needed_rms_{against}"] = need
+        row[f"rms_{against}"] = rms
+    row["max_abs_err"] = max(row[f"max_abs_err_{a}"] for a in wants)
+    row["compare"] = (f"{' and '.join(wants)}, {'sampled rows' if sampled else 'all rows'}"
+                      f", bf16, {limit}")
+    del wants, want, got_rows
+    torch.cuda.empty_cache()
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+    if window is None:
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+    else:
+        qi = torch.arange(s, device=DEV)[:, None]
+        ki = torch.arange(s, device=DEV)[None, :]
+        mask = (ki <= qi) & (ki > qi - window)
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)  # noqa: E731
+    row["ms"] = cuda_ms(torch, kernel)
+    if sampled:
+        row["plain_ms"] = None    # the plain versions' time is taken at S = 8192
+    else:
+        row["plain_ms"] = cuda_ms(torch, lambda: fref.flash_attention_plain(q, k, v, **kw))
+        row["oracle_ms"] = cuda_ms(torch, lambda: fref.attention_ref(q, k, v, **kw))
+        torch.cuda.empty_cache()
+    row["library_ms"] = cuda_ms(torch, library)
+    pairs = attention_pairs(s, window) * bh
+    nbytes = 4 * bh * s * d * 2                  # q, k, v read, out written, bf16
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * d * pairs, H100_BF16_TC_OPS_PER_S)
+    row.update(pairs=pairs, flops=4 * d * pairs, bound_rate="bf16 tensor cores 989 TFLOP/s")
+    return row
+
+
+def spmm_case(torch, np, gen_mod, sk, sref, gen):
+    """``web_crawl_like(16, 13, 16, 3)`` as block-ELL (the port's to_bsr),
+    F = 128, f32: the kernel against the plain version and the edge list."""
+    t0 = time.perf_counter()
+    src, dst, n = gen_mod.web_crawl_like(16, 13, 16, 3, seed=0)
+    w = gen_mod.random_weights(len(src), seed=1)
+    idx_np, blocks_np = sk.to_bsr(src, dst, w, n)
+    t_host = time.perf_counter() - t0
+    idx = torch.from_numpy(idx_np).to(DEV)
+    blocks = torch.from_numpy(blocks_np).to(DEV)
+    del blocks_np
+    R, K, bm, bk = blocks.shape
+    f = 128
+    x = torch.randn((idx.shape[0] * bk, f), generator=gen, device=DEV)
+
+    def kernel():
+        return sk.spmm_bsr(idx, blocks, x)
+
+    before = sk.spmm_bsr.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    check(sk.spmm_bsr.launches == before + 1, "spmm_bsr: no launch counted")
+    want = sref.spmm_bsr_plain(idx, blocks, x)
+    err = (got - want).abs()
+    check(bool((err <= SPMM_TOL + SPMM_TOL * want.abs()).all()),
+          f"spmm_bsr: kernel and plain version outside {SPMM_TOL} (max err {float(err.max())})")
+    src_t, dst_t = torch.from_numpy(src).to(DEV), torch.from_numpy(dst).to(DEV)
+    coo = sref.spmm_coo_ref(src_t, dst_t, torch.from_numpy(w).to(DEV), n, x)
+    coo_err = (got[:n] - coo).abs()
+    check(bool((coo_err <= SPMM_COO_TOL + SPMM_COO_TOL * coo.abs()).all()),
+          f"spmm_bsr: outside {SPMM_COO_TOL} of the edge list (max err {float(coo_err.max())})")
+    nnzb = int((idx >= 0).sum())
+    row = dict(case=f"web_crawl_like(16, 13, 16, 3) F={f} f32", n=n, edges=len(src),
+               nnz_blocks=nnzb, K=K, to_bsr_host_s=t_host, max_abs_err=float(err.max()),
+               max_abs_err_edge_list=float(coo_err.max()),
+               compare=f"plain version atol = rtol = {SPMM_TOL}; edge list {SPMM_COO_TOL}")
+    del want, err, coo, coo_err, src_t, dst_t
+    valid = idx >= 0
+    counts = valid.sum(1)
+    crow = torch.zeros(R + 1, dtype=torch.int64, device=DEV)
+    crow[1:] = torch.cumsum(counts, 0)
+    row["ms"] = cuda_ms(torch, kernel)
+    row["plain_ms"] = cuda_ms(torch, lambda: sref.spmm_bsr_plain(idx, blocks, x))
+    with warnings.catch_warnings():   # PyTorch's BSR support warns that it is beta
+        warnings.simplefilter("ignore")
+        bsr = torch.sparse_bsr_tensor(crow, idx[valid].long(), blocks[valid],
+                                      size=(R * bm, x.shape[0]))
+        row["library_ms"] = cuda_ms(torch, lambda: bsr @ x)
+        lib_err = float((bsr @ x - got).abs().max())
+    nbytes = idx.numel() * 4 + nnzb * bm * bk * 4 + x.numel() * 4 + R * bm * f * 4
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nnzb * 2 * bm * bk * f)
+    row.update(flops=nnzb * 2 * bm * bk * f, library_max_abs_diff=lib_err)
+    return row
+
+
+def embedding_bag_cases(torch, ek, eops, eref, gen):
+    """MIND's item table under its serve_bulk and serve_p99 batches: history
+    lengths uniform in 1..50, the tail -1, unweighted; sum and mean, each
+    bitwise equal to the plain version."""
+    import torch.nn.functional as F
+    table = torch.randn((MIND_ITEMS, MIND_DIM), generator=gen, device=DEV)
+    rows = []
+    for batch, b in MIND_BATCHES:
+        lengths = torch.randint(1, MIND_HIST + 1, (b, 1), generator=gen, device=DEV)
+        ids = torch.randint(0, MIND_ITEMS, (b, MIND_HIST), generator=gen, device=DEV,
+                            dtype=torch.int32)
+        ids = torch.where(torch.arange(MIND_HIST, device=DEV)[None] < lengths, ids, -1)
+        ones = torch.ones((b, MIND_HIST), device=DEV)
+        max_err = 0.0
+        for mode in ("sum", "mean"):
+            before = ek.embedding_bag.launches
+            got = eops.embedding_bag(ids, table, mode=mode)
+            torch.cuda.synchronize()
+            check(ek.embedding_bag.launches == before + 1, f"embedding_bag {batch}: no launch")
+            plain = eref.embedding_bag_plain(ids, ones, table)
+            if mode == "mean":
+                plain = plain / torch.where(ids >= 0, ones, 0.0).sum(1, keepdim=True).clamp_min(1e-9)
+            check(torch.equal(got.view(torch.int32), plain.view(torch.int32)),
+                  f"embedding_bag {batch} {mode}: kernel and plain version differ bitwise")
+            if mode == "sum":
+                oracle = eref.embedding_bag_ref(ids, ones, table)
+                err = (got - oracle).abs()
+                check(bool((err <= EB_ORACLE_TOL + EB_ORACLE_TOL * oracle.abs()).all()),
+                      f"embedding_bag {batch}: outside {EB_ORACLE_TOL} of the oracle")
+                max_err = float(err.max())
+        valid = int((ids >= 0).sum())
+        w0 = torch.where(ids >= 0, ones, 0.0)
+        ids0 = ids.clamp_min(0)
+        row = dict(case=f"MIND {batch}: {b} x {MIND_HIST}, table {MIND_ITEMS} x {MIND_DIM} f32",
+                   rows_gathered=valid, max_abs_err=0.0, max_abs_err_oracle=max_err,
+                   compare="bitwise (sum and mean); oracle atol = rtol = "
+                           f"{EB_ORACLE_TOL}")
+        row["ms"] = cuda_ms(torch, lambda: ek.embedding_bag(ids, ones, table))
+        row["plain_ms"] = cuda_ms(torch, lambda: eref.embedding_bag_plain(ids, ones, table))
+        row["library_ms"] = cuda_ms(torch, lambda: F.embedding_bag(
+            ids0, table, per_sample_weights=w0, mode="sum"))
+        nbytes = b * MIND_HIST * 8 + valid * MIND_DIM * 4 + b * MIND_DIM * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * valid * MIND_DIM)
+        rows.append(row)
+    return rows
+
+
+def layer_check(torch, kern, L):
+    """layers.attention at h2o-danube-3-4b's full width, B = 1, S = 8192,
+    bf16: the flash branch (counts set to 0 just before, read just after)
+    against the plain softmax branch.  Each branch runs twice; the wall
+    times of both calls are printed (the first pays one-time set-up)."""
+    cfg = L.AttnConfig(**DANUBE)
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    p = L.attn_init(gen, cfg, torch.bfloat16, device=DEV)
+    x = torch.randn((1, LAYER_S, cfg.d_model), generator=gen, device=DEV).to(torch.bfloat16)
+    pos = torch.arange(LAYER_S, device=DEV)
+
+    def twice(use_pallas):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = L.attention(p, cfg, x, pos, use_pallas=use_pallas)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return out, walls
+
+    kern.reset_launches()
+    a, wall = twice(True)
+    launches = kern.launch_counts()
+    check(launches["flash_attention"] > 0, "layer: flash_attention was not launched")
+    check(a.shape == x.shape and a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()),
+          "layer: flash branch output shape/dtype/finite")
+    b, wall_plain = twice(False)
+    check(kern.launch_counts() == launches, "layer: the plain branch launched a kernel")
+    ok, err, need = within(torch, a, b, LAYER_RTOL, LAYER_ATOL_RMS, dim=-1)
+    row_rms = b.float().square().mean(-1).sqrt()
+    check(ok, f"layer: flash and plain branches differ (max err {err}, atol needed "
+              f"{need} x the row's rms, limit rtol {LAYER_RTOL} + {LAYER_ATOL_RMS} x rms)")
+    print(f"layer: h2o-danube-3-4b attention d_model={cfg.d_model} S={LAYER_S} bf16: "
+          f"flash wall_ms={wall} plain wall_ms={wall_plain} (first, second call) "
+          f"max_abs_err={err} atol_needed={need} x row rms (limit rtol {LAYER_RTOL} + "
+          f"{LAYER_ATOL_RMS} x row rms); row rms min/median/max "
+          f"{float(row_rms.min())}/{float(row_rms.median())}/{float(row_rms.max())} "
+          f"launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def bench_kernels_check(torch, np, kernels_bench, fk, fref, sk, sref, ek, eref):
+    """Each kernel on kernels_bench's own inputs (f32 flash at d = 64, f32
+    SpMM at n = 512, the f32 bag at D = 128) against its plain version: f32
+    within the reference's 2e-5, the bag bitwise; the bag also on that
+    table in bf16 and widened to D = 256 in both dtypes, which with MIND's
+    D = 64 runs each of its vector widths.  These launches are not the
+    entry point's."""
+    (q, k, v), (idx, blocks, x), (ids, ws, table) = kernels_bench.kernel_inputs(
+        DEV, np.random.default_rng(0))
+    out = {}
+    for name, got, want in (
+            ("flash_attention", fk.flash_attention_bhsd(q, k, v),
+             fref.flash_attention_plain(q, k, v)),
+            ("spmm_bsr", sk.spmm_bsr(idx, blocks, x), sref.spmm_bsr_plain(idx, blocks, x))):
+        err = (got - want).abs()
+        check(got.dtype == want.dtype and bool(torch.isfinite(got).all()) and bool(
+            (err <= F32_TOL + F32_TOL * want.abs()).all()),
+            f"kernels_bench inputs: {name} outside {F32_TOL} of its plain version "
+            f"(max err {float(err.max())})")
+        out[name] = float(err.max())
+    wide = torch.cat([table, -table], 1)      # D = 256: other vector widths
+    for tab in (table, table.to(torch.bfloat16), wide, wide.to(torch.bfloat16)):
+        got, want = ek.embedding_bag(ids, ws, tab), eref.embedding_bag_plain(ids, ws, tab)
+        check(got.dtype == tab.dtype and torch.equal(got, want),
+              f"kernels_bench inputs: embedding_bag {tab.dtype} differs from its plain version")
+    out["embedding_bag"] = 0.0
+    print(f"kernels_bench inputs, kernel against plain version (max abs err): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def bench_check(torch, kern, kernels_bench):
+    """The port's kernels_bench entry point on the card (counts set to 0
+    just before, read just after)."""
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    rows = kernels_bench.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kern.launch_counts()
+    for r in rows:
+        print(f"  {r[0]},{r[1]},{r[2]}", flush=True)
+    check(tuple(r[0] for r in rows) == KERNELS_BENCH_ROWS,
+          f"kernels_bench rows {[r[0] for r in rows]} are not the JAX suite's")
+    derived = dict(kv.split("=", 1) for kv in rows[-1][2].split(";"))
+    check(rows[-1][0] == "kern/graph_bfs_e2e[cuda]" and derived["substrate"] == "cuda",
+          f"kernels_bench: the cuda BFS row says {rows[-1][2]}")
+    for name, count in launches.items():
+        check(count > 0, f"kernels_bench: kernel {name} was not launched")
+    print(f"kernels_bench: {len(rows)} rows in {secs} s, launches {json.dumps(launches)}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--communities", type=int, default=512,
@@ -596,8 +953,18 @@ def main() -> int:
     from repro_torch.core.algorithms import bc, bfs, cc, kcore, pagerank, sssp
     from repro_torch.core.algorithms import tc as tri
     from repro_torch.graphs import generators as gen_mod
+    from repro_torch import kernels as kern
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.kernels import build
     from repro_torch.kernels import graph_ops as gk
-    from repro_torch.kernels.graph_ops import build
+    from repro_torch.kernels.embedding_bag import embedding_bag as ek
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag import ref as eref
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.spmm_bsr import ref as sref
+    from repro_torch.kernels.spmm_bsr import spmm_bsr as sk
+    from repro_torch.models import layers
     algos = (bfs, sssp, cc, pagerank)
     suite = (kcore, bc, tri)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -611,11 +978,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} nvcc: {nvcc} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    # 2. build
+    # 2. build: every kernel library, one nvcc each, all at once
     t0 = time.perf_counter()
-    build.load("graph_ops")
-    print(f"build: {time.perf_counter() - t0} s (nvcc {build.build_seconds} s) "
-          f"into {build.BUILD_DIR}", flush=True)
+    libs = build.build_all()
+    for stem in libs:
+        build.load(stem)
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t0} s (nvcc "
+          f"{build.build_seconds} s) into {build.BUILD_DIR}", flush=True)
 
     # 3. the graph, built on the host and copied to the card once
     t0 = time.perf_counter()
@@ -729,30 +1098,68 @@ def main() -> int:
     check(bool(torch.isfinite(kron_cuda["pr_push"][0]).all()), "kron: non-finite ranks")
     print("kron suite: cuda == torch (labels bitwise, pagerank and bc allclose, "
           "RunStats equal but for pagerank's round slack)", flush=True)
-    total = {k: launches[k] + web_launches[k] + kron_launches[k] for k in launches}
+    del (g, gsym, kg, kg_unw, kgsym, main_runs, cuda_runs, torch_runs, kron_cuda,
+         kron_torch, kw, mask)
+    torch.cuda.empty_cache()
 
+    # 10. flash attention, spmm_bsr and embedding_bag at full width, each
+    # against its plain version on the card
+    t0 = time.perf_counter()
+    flash_rows = [flash_case(torch, fk, fref, *case, rng) for case in FLASH_CASES]
+    flash_rows.append(flash_case(torch, fk, fref, *FLASH_LONG, rng, sampled=True))
+    for row in flash_rows:
+        print("  flash_attention " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    spmm_row = spmm_case(torch, np, gen_mod, sk, sref, rng)
+    print("  spmm_bsr " + json.dumps(spmm_row), flush=True)
+    torch.cuda.empty_cache()
+    eb_rows = embedding_bag_cases(torch, ek, eops, eref, rng)
+    for row in eb_rows:
+        print("  embedding_bag " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    print(f"new kernels: {time.perf_counter() - t0} s", flush=True)
+
+    # 11. the attention layer, flash branch against the plain branch
+    layer_launches = layer_check(torch, kern, layers)
+    torch.cuda.empty_cache()
+
+    # 12. the kernels_bench entry point: its kernels on its inputs, then the run
+    bench_errs = bench_kernels_check(torch, np, kernels_bench, fk, fref, sk, sref, ek, eref)
+    bench_launches = bench_check(torch, kern, kernels_bench)
+
+    # every path's cuda launches: the three graph paths count graph_ops only
+    total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,
+                                                layer_launches, bench_launches))
+             for k in bench_launches}
     src_file = "src/repro_torch/kernels/graph_ops/csrc/graph_ops.cu"
     main_relax, main_adv, main_inter = relax_rows[0], adv_rows[1], inter_rows[0]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def entry(name, source, replaces, max_err, row):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=total[name], max_abs_err=max_err,
+                    **{key: row[key] for key in timed})
+
     kernels = [
-        dict(name="edge_relax", route="cuda", source=src_file,
-             replaces="src/repro/kernels/graph_ops/graph_ops.py:65",
-             launches=total["edge_relax"], max_abs_err=max(r["max_abs_err"] for r in relax_rows),
-             ms=main_relax["ms"], plain_ms=main_relax["plain_ms"],
-             bound_ms=main_relax["bound_ms"], bound_by=main_relax["bound_by"],
-             library_ms=main_relax["library_ms"]),
-        dict(name="advance", route="cuda", source=src_file,
-             replaces="src/repro/kernels/graph_ops/graph_ops.py:162",
-             launches=total["advance"], max_abs_err=0.0,
-             ms=main_adv["ms"], plain_ms=main_adv["plain_ms"],
-             bound_ms=main_adv["bound_ms"], bound_by=main_adv["bound_by"],
-             library_ms=main_adv["library_ms"]),
-        dict(name="intersect", route="cuda", source=src_file,
-             replaces="src/repro/kernels/graph_ops/graph_ops.py:117",
-             launches=total["intersect"],
-             max_abs_err=max(r["max_abs_err"] for r in inter_rows),
-             ms=main_inter["ms"], plain_ms=main_inter["plain_ms"],
-             bound_ms=main_inter["bound_ms"], bound_by=main_inter["bound_by"],
-             library_ms=main_inter["library_ms"]),
+        entry("edge_relax", src_file, "src/repro/kernels/graph_ops/graph_ops.py:65",
+              max(r["max_abs_err"] for r in relax_rows), main_relax),
+        entry("advance", src_file, "src/repro/kernels/graph_ops/graph_ops.py:162", 0.0,
+              main_adv),
+        entry("intersect", src_file, "src/repro/kernels/graph_ops/graph_ops.py:117",
+              max(r["max_abs_err"] for r in inter_rows), main_inter),
+        entry("flash_attention",
+              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/flash_attention.py:29",
+              max([r["max_abs_err"] for r in flash_rows] + [bench_errs["flash_attention"]]),
+              flash_rows[0]),
+        entry("spmm_bsr", "src/repro_torch/kernels/spmm_bsr/csrc/spmm_bsr.cu",
+              "src/repro/kernels/spmm_bsr/spmm_bsr.py:29",
+              max(spmm_row["max_abs_err"], bench_errs["spmm_bsr"]),
+              spmm_row),
+        entry("embedding_bag",
+              "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+              "src/repro/kernels/embedding_bag/embedding_bag.py:25",
+              max(r["max_abs_err"] for r in eb_rows), eb_rows[0]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

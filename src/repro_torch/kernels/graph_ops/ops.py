@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from .. import build
+from . import ref
 
 _KIND = {"min": 0, "max": 1, "add": 2, "or": 3}
 _DTYPE = {torch.float32: 0, torch.int32: 1, torch.uint8: 2}
