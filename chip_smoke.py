@@ -10,7 +10,11 @@ non-zero exit before its last line:
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every kernel library (``src/repro_torch/kernels/*/csrc/*.cu``:
    graph_ops, flash_attention, spmm_bsr, embedding_bag), one ``nvcc`` each,
-   all at once, into the git-ignored ``build/repro_torch``;
+   all at once, into the git-ignored ``build/repro_torch``; then, for each
+   instantiation of the bf16 flash-attention kernel (``flash_tc_kernel``),
+   its registers, spills and shared memory from ``-Xptxas -v`` (no spills
+   allowed) and, where the toolkit has ``cuobjdump``, the count of
+   ``HMMA`` (tensor-core) instructions in its SASS (none is a failure);
 3. graph: ``web_crawl_like(512, 13, 16, 3)`` with random weights (about
    4.19 M vertices and 57 M edges), built as CSR+CSC and symmetrized
    (CSR+CSC, for cc and pagerank) on the card;
@@ -38,10 +42,15 @@ non-zero exit before its last line:
 10. the other kernels at full width, each against its plain version on the
    card: bf16 flash attention against ``flash_attention_plain`` and
    ``attention_ref`` within rtol 8e-3 (one bf16 ulp) + 1e-3 x rms(want),
-   since all three keep f32 sums and round once: flash attention at the attention
+   since all three keep f32 sums and round once (the bf16 kernel's p as
+   bf16 hi + lo keeps it so): flash attention at the attention
    layers of h2o-danube-3-4b (32 heads, d_head 120, window 4096, S = 8192,
    and once more at S = 32,768 against 256 sampled query rows per head)
-   and stablelm-3b (32 heads, d_head 80, causal, S = 4096); ``spmm_bsr`` on
+   and stablelm-3b (32 heads, d_head 80, causal, S = 4096), and at two
+   small shapes (bh 4, S 200, d 36, window 48: the element-wise tile loads
+   and the mask on edge tiles; bh 2, S 300, d 64, bidirectional), each
+   through the tensor cores
+   (``tc_launches`` must rise); ``spmm_bsr`` on
    ``web_crawl_like(16, 13, 16, 3)`` in block-ELL (the port's ``to_bsr``),
    F = 128, f32, against the plain version (2e-4) and the edge list (4e-4);
    ``embedding_bag`` on MIND's 2^23 x 64 f32 item table under its
@@ -49,7 +58,8 @@ non-zero exit before its last line:
    mean, bitwise;
 11. the layer: ``layers.attention`` at h2o-danube-3-4b's full width (d_model
    3840, B = 1, S = 8192, bf16), the flash branch (counts set to 0 just
-   before, read just after) against the plain softmax branch, within
+   before, read just after; its flash launches on the tensor cores)
+   against the plain softmax branch, within
    8e-3 x |plain| + 5e-2 x the rms of the query row (the plain branch
    rounds its probabilities and head outputs to bf16);
 12. the entry point: first each kernel on ``kernels_bench``'s own inputs
@@ -74,7 +84,10 @@ Each kernel row prints ``ms`` (CUDA events, 5 reps after a warm-up),
 ``plain_ms``, ``library_ms`` (one PyTorch call for the same function, timed
 as a yardstick only) and ``bound_ms`` / ``bound_by``: bytes over 3.35 TB/s
 against operations over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 attention,
-whose work could take the tensor cores.
+whose work could take the tensor cores.  A bf16 flash row also prints
+``tflops`` (those 4 d operations per unmasked pair over the kernel's
+time), ``tc_flops`` (the 6 d per pair the kernel runs: p @ v twice, for
+p's bf16 hi and lo halves) and ``route``.
 
 It prints the kernels line (one JSON object) and, last, the device line.
 It exits non-zero without a result when no CUDA device is present or when
@@ -622,11 +635,17 @@ DEV = "cuda"
 FLASH_CASES = (("h2o-danube-3-4b S=8192", 32, 8192, 120, 4096),
                ("stablelm-3b S=4096", 32, 4096, 80, None))
 FLASH_LONG = ("h2o-danube-3-4b S=32768 (prefill_32k)", 32, 32768, 120, 4096)
+# (name, bh, S, d, window, causal): an odd width (d % 8 != 0: element-wise
+# tile loads) with a window, and a bidirectional head, both with a ragged S
+FLASH_SMALL = (("odd width, window, ragged S", 4, 200, 36, 48, True),
+               ("bidirectional, ragged S", 2, 300, 64, None, False))
+FLASH_ROUTE = "tensor cores: mma.sync m16n8k16 bf16, f32 accumulators, p as bf16 hi + lo"
 FLASH_SAMPLED_ROWS = 256
 # bf16 flash attention against its plain versions: both keep f32 scores and
-# sums and round the output once, so they differ by the final rounding:
-# rtol 8e-3 (2^-7, one bf16 ulp at worst) plus an atol of 1e-3 x rms(want)
-# (the H100 read at most 3.1e-6 x rms)
+# sums (the kernel carries p as bf16 hi + lo, to about 2^-17) and round the
+# output once, so they differ by the final rounding: rtol 8e-3 (2^-7, one
+# bf16 ulp at worst) plus an atol of 1e-3 x rms(want) (the H100 read at
+# most 3.6e-5 x rms; p rounded once to bf16 would exceed it)
 FLASH_RTOL, FLASH_ATOL_RMS = 8e-3, 1e-3
 # the layer's flash branch against its plain branch, which rounds the
 # probabilities and the head outputs to bf16 (about 2^-9 of a row's scale
@@ -646,8 +665,11 @@ DANUBE = dict(d_model=3840, n_heads=32, n_kv_heads=8, d_head=120,
 LAYER_S = 8192
 
 
-def attention_pairs(s, window):
-    """Unmasked (query, key) pairs of one causal head: sum of min(q+1, window)."""
+def attention_pairs(s, window, causal=True):
+    """Unmasked (query, key) pairs of one head: sum of min(q+1, window) when
+    causal, else of the keys past q - window."""
+    if not causal:
+        return s * s if window is None else sum(s - max(0, q - window + 1) for q in range(s))
     if window is None or window >= s:
         return s * (s + 1) // 2
     return window * (window + 1) // 2 + (s - window) * window
@@ -667,22 +689,23 @@ def within(torch, got, want, rtol, atol_rms, dim=None):
     return ok, float(err.max()), need
 
 
-def flash_case(torch, fk, fref, name, bh, s, d, window, gen, sampled=False):
+def flash_case(torch, fk, fref, name, bh, s, d, window, gen, sampled=False, causal=True):
     """The kernel against the plain oracle (all rows, or sampled rows at a
     length whose S x S scores do not fit), timed beside the plain version
     and scaled_dot_product_attention."""
     import torch.nn.functional as F
     q, k, v = (torch.randn((bh, s, d), generator=gen, device=DEV).to(torch.bfloat16)
                for _ in range(3))
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
 
     def kernel():
         return fk.flash_attention_bhsd(q, k, v, **kw)
 
-    before = fk.flash_attention_bhsd.launches
+    before = fk.flash_attention_bhsd.launches, fk.flash_attention_bhsd.tc_launches
     got = kernel()
     torch.cuda.synchronize()
-    check(fk.flash_attention_bhsd.launches == before + 1, f"flash {name}: no launch counted")
+    check((fk.flash_attention_bhsd.launches, fk.flash_attention_bhsd.tc_launches) ==
+          (before[0] + 1, before[1] + 1), f"flash {name}: no tensor-core launch counted")
     limit = f"rtol {FLASH_RTOL} + {FLASH_ATOL_RMS} x rms(want)"
     if sampled:
         rows = torch.randperm(s, generator=gen, device=DEV)[:FLASH_SAMPLED_ROWS - 2]
@@ -710,11 +733,11 @@ def flash_case(torch, fk, fref, name, bh, s, d, window, gen, sampled=False):
     torch.cuda.empty_cache()
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     if window is None:
-        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)  # noqa: E731
     else:
         qi = torch.arange(s, device=DEV)[:, None]
         ki = torch.arange(s, device=DEV)[None, :]
-        mask = (ki <= qi) & (ki > qi - window)
+        mask = (ki > qi - window) & ((ki <= qi) if causal else True)
         library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)  # noqa: E731
     row["ms"] = cuda_ms(torch, kernel)
     if sampled:
@@ -724,11 +747,46 @@ def flash_case(torch, fk, fref, name, bh, s, d, window, gen, sampled=False):
         row["oracle_ms"] = cuda_ms(torch, lambda: fref.attention_ref(q, k, v, **kw))
         torch.cuda.empty_cache()
     row["library_ms"] = cuda_ms(torch, library)
-    pairs = attention_pairs(s, window) * bh
+    pairs = attention_pairs(s, window, causal) * bh
     nbytes = 4 * bh * s * d * 2                  # q, k, v read, out written, bf16
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * d * pairs, H100_BF16_TC_OPS_PER_S)
-    row.update(pairs=pairs, flops=4 * d * pairs, bound_rate="bf16 tensor cores 989 TFLOP/s")
+    row.update(pairs=pairs, flops=4 * d * pairs, tflops=4 * d * pairs / row["ms"] / 1e9,
+               tc_flops=6 * d * pairs, route=FLASH_ROUTE,
+               bound_rate="bf16 tensor cores 989 TFLOP/s")
     return row
+
+
+def tc_kernel_report(build):
+    """The bf16 flash kernel's instantiations: registers, spills and static
+    shared memory from ``-Xptxas -v`` (beside the dynamic bytes each launch
+    asks for), and, where the toolkit has ``cuobjdump``, the ``HMMA``
+    instructions in each one's SASS.  Fails on a spill or on no HMMA."""
+    info = {name: v for name, v in build.ptxas_info("flash_attention").items()
+            if "flash_tc_kernel" in name}
+    check(len(info) == 8, f"flash_tc_kernel: {len(info)} instantiations in the ptxas log")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    hmma = None
+    if cuobjdump.exists():
+        sass = sh([str(cuobjdump), "-sass", str(build.build_all()["flash_attention"])])
+        hmma, name = {}, None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                name = line.split("Function : ", 1)[1].strip()
+                hmma[name] = 0
+            elif name and "HMMA" in line:
+                hmma[name] += 1
+    lib = build.load("flash_attention")
+    for name, v in sorted(info.items()):
+        nk = int(name.split("flash_tc_kernelILi", 1)[1].split("E", 1)[0])
+        dyn = lib.flash_attention_tc_smem_bytes(16 * nk)
+        n_hmma = None if hmma is None else hmma.get(name, 0)
+        print(f"  flash_tc_kernel<DP={16 * nk}>: registers {v.get('registers')} spill "
+              f"stores {v.get('spill_stores')} loads {v.get('spill_loads')} stack "
+              f"{v.get('stack')} static smem {v.get('smem')} B dynamic smem {dyn} B; HMMA "
+              f"in SASS {'no cuobjdump' if n_hmma is None else n_hmma}", flush=True)
+        check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
+              f"flash_tc_kernel<DP={16 * nk}> spills: {v}")
+        check(n_hmma is None or n_hmma > 0, f"flash_tc_kernel<DP={16 * nk}>: no HMMA in SASS")
 
 
 def spmm_case(torch, np, gen_mod, sk, sref, gen):
@@ -857,7 +915,11 @@ def layer_check(torch, kern, L):
     kern.reset_launches()
     a, wall = twice(True)
     launches = kern.launch_counts()
+    tc_launches = kern.KERNELS["flash_attention"].tc_launches
     check(launches["flash_attention"] > 0, "layer: flash_attention was not launched")
+    check(tc_launches == launches["flash_attention"],
+          f"layer: {tc_launches} of {launches['flash_attention']} flash launches on the "
+          f"tensor cores")
     check(a.shape == x.shape and a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()),
           "layer: flash branch output shape/dtype/finite")
     b, wall_plain = twice(False)
@@ -871,7 +933,8 @@ def layer_check(torch, kern, L):
           f"max_abs_err={err} atol_needed={need} x row rms (limit rtol {LAYER_RTOL} + "
           f"{LAYER_ATOL_RMS} x row rms); row rms min/median/max "
           f"{float(row_rms.min())}/{float(row_rms.median())}/{float(row_rms.max())} "
-          f"launches {json.dumps(launches)}", flush=True)
+          f"launches {json.dumps(launches)} (flash on the tensor cores: {tc_launches})",
+          flush=True)
     return launches
 
 
@@ -985,6 +1048,7 @@ def main() -> int:
         build.load(stem)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0} s (nvcc "
           f"{build.build_seconds} s) into {build.BUILD_DIR}", flush=True)
+    tc_kernel_report(build)
 
     # 3. the graph, built on the host and copied to the card once
     t0 = time.perf_counter()
@@ -1107,6 +1171,8 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_rows = [flash_case(torch, fk, fref, *case, rng) for case in FLASH_CASES]
     flash_rows.append(flash_case(torch, fk, fref, *FLASH_LONG, rng, sampled=True))
+    for *case, causal in FLASH_SMALL:
+        flash_rows.append(flash_case(torch, fk, fref, *case, rng, causal=causal))
     for row in flash_rows:
         print("  flash_attention " + json.dumps(row), flush=True)
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels, one package each, built by
 ``build.py``.  ``KERNELS`` maps each kernel's name to the wrapper that
-launches it; every wrapper counts its launches in ``.launches``."""
+launches it; every wrapper counts its launches in ``.launches`` (and flash
+attention its bf16 launches, on the tensor cores, in ``.tc_launches``)."""
 
 from .embedding_bag.embedding_bag import embedding_bag
 from .flash_attention.flash_attention import flash_attention_bhsd
@@ -13,9 +14,10 @@ KERNELS = {"edge_relax": edge_relax, "advance": advance_frontier,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention_bhsd.tc_launches = 0
 
 
 def launch_counts() -> dict:

@@ -11,6 +11,10 @@ each.
 Each library exports ``<stem>_error_string(int)``, which ``check`` uses to
 name a CUDA error code returned by one of its launch functions.
 
+``nvcc`` runs with ``-Xptxas -v``; its output is kept beside the library
+(``<library>.ptxas.txt``), and ``ptxas_info`` reads each kernel's
+registers, spills and shared memory from it.
+
 Nothing happens at import: the first call of ``load()`` builds and loads.
 A missing ``nvcc`` or a failed build raises.
 """
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +33,7 @@ from pathlib import Path
 KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,9 +63,11 @@ SIGNATURES = {
                              _I),
     },
     "flash_attention": {
-        # q, k, v, out, bh, s, d, causal, window (-1 = none), scale, dtype, stream
-        "flash_attention_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-                                    _I),
+        # q, k, v, out, bh, s, d, causal, window (-1 = none), scale, stream;
+        # f32 on the CUDA cores, bf16 (``_tc``) on the tensor cores
+        "flash_attention_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+        "flash_attention_forward_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+        "flash_attention_tc_smem_bytes": ([_I], _I),   # d
     },
 }
 
@@ -89,6 +96,10 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _log(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
 def build_all() -> dict[str, Path]:
     """Compile every source whose library is missing, all in parallel;
     returns {stem: library path}.  Raises if any build failed."""
@@ -112,10 +123,12 @@ def build_all() -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{stem}: nvcc exited {proc.returncode}\n{out}")
         else:
+            _log(lib).write_text(out)
             os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    build_seconds = time.perf_counter() - t0
+    if todo:   # the time of the call that built, not of a later one that found all
+        build_seconds = time.perf_counter() - t0
     return {stem: lib for stem, (_, lib) in targets.items()}
 
 
@@ -133,6 +146,26 @@ def load(stem: str) -> ctypes.CDLL:
         lib.error_string = getattr(lib, f"{stem}_error_string")
         _libs[stem] = lib
     return _libs[stem]
+
+
+def ptxas_info(stem: str) -> dict[str, dict[str, int]]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "stack", "smem"}} from ``-Xptxas -v``'s lines of ``<stem>``'s build
+    (``smem`` is the static shared memory; dynamic comes at launch)."""
+    info: dict[str, dict[str, int]] = {}
+    name = None
+    for line in _log(build_all()[stem]).read_text().splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line):
+            name = m.group(1)
+            info.setdefault(name, {})
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            info[name].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            info[name]["registers"] = int(m[1])
+            sm = re.search(r"(\d+) bytes smem", line)
+            info[name]["smem"] = int(sm[1]) if sm else 0
+    return info
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

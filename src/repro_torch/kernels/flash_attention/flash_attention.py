@@ -4,9 +4,12 @@ the counterpart of ``src/repro/kernels/flash_attention/flash_attention.py``.
 On CUDA tensors it checks device, dtype, shape and contiguity, allocates
 the output, launches on the current stream, raises when the launch
 function reports an error, and adds one to ``flash_attention_bhsd.launches``.
-On CPU tensors it calls ``ref.flash_attention_plain`` and launches
-nothing.  ``block_q`` / ``block_k`` set the plain version's tiles (and
-only there are they checked); the kernel tiles 64 x 64 whatever they are.
+bf16 goes to the tensor-core kernel (``flash_attention_forward_tc``), which
+also adds one to ``flash_attention_bhsd.tc_launches``; f32 to the kernel on
+the CUDA cores (``flash_attention_forward``), exact to f32.  On CPU tensors
+it calls ``ref.flash_attention_plain`` and launches nothing.  ``block_q`` /
+``block_k`` set the plain version's tiles (and only there are they
+checked); the kernels tile as their source says, whatever they are.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ import torch
 from .. import build
 from .ref import flash_attention_plain
 
-_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 128   # widest head the kernel takes
 
 
@@ -39,7 +41,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
     bh, s, d = q.shape
     if window is not None and window < 1:
         raise ValueError(f"window must be None or at least 1, not {window}")
-    if q.dtype not in _DTYPE:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes f32 or bf16, not {q.dtype}")
     if not (0 < d <= MAX_D):
         raise ValueError(f"flash_attention kernel takes head widths 1..{MAX_D}, not {d}")
@@ -55,13 +57,16 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
     if bh == 0 or s == 0:
         return out
     lib = build.load("flash_attention")
-    rc = lib.flash_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
-        int(causal), -1 if window is None else window, 1.0 / math.sqrt(d),
-        _DTYPE[q.dtype], torch.cuda.current_stream().cuda_stream)
+    tc = q.dtype == torch.bfloat16
+    forward = lib.flash_attention_forward_tc if tc else lib.flash_attention_forward
+    rc = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
+                 int(causal), -1 if window is None else window, 1.0 / math.sqrt(d),
+                 torch.cuda.current_stream().cuda_stream)
     build.check(lib, rc, "flash_attention")
     flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.tc_launches += int(tc)
     return out
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.tc_launches = 0   # the bf16 launches, on the tensor cores

@@ -16,6 +16,7 @@ the embedding bag; bf16 results may differ by one rounding of the output.
 
 import importlib.util
 import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -129,6 +130,63 @@ def test_attention_ref_rows_are_the_full_rows():
     full = t_fa_ref.attention_ref(q, k, v, causal=True, window=9)
     part = t_fa_ref.attention_ref(q, k, v, causal=True, window=9, rows=rows)
     assert torch.equal(part, full[:, rows])
+
+
+def _tensor_core_model(q, k, v, causal, window):
+    """The bf16 tensor-core kernel's arithmetic (``flash_tc_kernel`` in
+    ``csrc/flash_attention.cu``) in plain torch: bf16 q and k, f32 raw
+    scores, 64-key tiles through an online softmax on the raw max with
+    p = 2^(s c - m c), c = scale * log2(e), p split into bf16 hi and lo,
+    both products against bf16 v summed in f32, one rounding of the
+    output."""
+    bh, s, d = q.shape
+    scale = float(np.float32(1.0 / math.sqrt(d)))       # as ctypes passes it
+    scale_log2 = float(np.float32(scale * math.log2(math.e)))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((bh, s, 1), t_fa_ref.NEG_INF)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, d))
+    for k0 in range(0, s, 64):
+        mask = t_fa_ref._mask(qpos, torch.arange(k0, min(k0 + 64, s))[None, :], s,
+                              causal, window)
+        kb, vb = kf[:, k0:k0 + 64], vf[:, k0:k0 + 64]
+        raw = torch.where(mask, qf @ kb.transpose(1, 2), t_fa_ref.NEG_INF)
+        m_new = torch.maximum(m, raw.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp2(raw * scale_log2 - m_new * scale_log2), 0.0)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        assert bool(((hi + lo - p).abs() <= 2.0**-16 * p).all())
+        corr = torch.exp2((m - m_new) * scale_log2)
+        l = corr * l + p.sum(-1, keepdim=True)
+        acc = corr * acc + hi @ vb + lo @ vb
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bh,s,d,causal,window,bq,bk", FLASH_CASES)
+def test_tensor_core_arithmetic_matches_jax_oracle(bh, s, d, causal, window, bq, bk):
+    """p carried as bf16 hi + lo keeps the bf16 kernel within chip_smoke.py's
+    limit of the reference's f32 oracle: 8e-3 |want| + 1e-3 rms(want)."""
+    rng = np.random.default_rng(bh * 1000 + s + d)
+    q, k, v = (rng.normal(size=(bh, s, d)) for _ in range(3))
+    got = _tensor_core_model(T(q, "bfloat16"), T(k, "bfloat16"), T(v, "bfloat16"),
+                             causal, window)
+    want = f32(j_attn_ref(J(q, "bfloat16"), J(k, "bfloat16"), J(v, "bfloat16"),
+                          causal=causal, window=window))
+    err = np.abs(f32(got) - want)
+    rms = np.sqrt(np.mean(want.astype(np.float64) ** 2))
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, s, d)
+    assert (err <= 8e-3 * np.abs(want) + 1e-3 * rms).all(), float(err.max())
+
+
+def test_tensor_core_launch_count_is_reset_and_left_alone_on_the_cpu():
+    t_fa.tc_launches = 5
+    tk.reset_launches()
+    assert t_fa.tc_launches == 0
+    q = T(np.random.default_rng(15).normal(size=(1, 40, 16)), "bfloat16")
+    t_fa(q, q, q)
+    assert t_fa.tc_launches == 0 and t_fa.launches == 0
 
 
 @pytest.mark.parametrize("s,window,bq,bk", [(100, None, 64, 48), (64, 0, 64, 64)])
