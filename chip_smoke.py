@@ -19,14 +19,25 @@ non-zero exit before its last line:
    4.19 M vertices and 57 M edges), built as CSR+CSC and symmetrized
    (CSR+CSC, for cc and pagerank) on the card;
 4. kernels: each kernel against its plain torch version on the card, at
-   the main path's shapes — bitwise except float add;
+   the main path's shapes — bitwise except float add: push, relax and
+   pull of each kind, then the shapes the main path gives edge_relax
+   besides — relax_batch on an advance output whose budget is about 4x
+   its total, pull over the symmetrized CSC (int32 min, and pr_pull's
+   f32 add), relax_edges under a delta-stepping edge mask, +inf seeds
+   (the clamp), unaligned slices (odd start and length) — and advance at
+   a small rung (with and without a hub's overflow), at cap = n_pad and
+   at f_count = 0;
 5. small: the quickstart graph on the card against the plain version on
    the CPU (which the CPU tests hold against the JAX package);
 6. main path: bfs_dd_sparse (fused and per-round), sssp_delta,
    cc_pointer_jump, cc_dd_sparse, pr_push and pr_pull under the "cuda"
    substrate (launch counts set to 0 just before, read just after), then
    under the plain "torch" substrate on the card; labels and RunStats must
-   agree;
+   agree; then the path once more under "cuda" and ``torch.profiler``
+   (CUDA activity), one line per kernel from ``key_averages()`` — calls,
+   total and mean device ms — and each family's total (where the profiler
+   records no device time, CUDA events around each graph_ops wrapper call
+   instead, and the line names that route);
 7. suite kernels: edge_relax's int32 add (kcore's decrements) under both
    masks at the symmetrized graph's shapes, bitwise; then the low-diameter
    input ``kron(20, 16, seed=1)`` (``table3_suite(10)["kron30"]``, built as
@@ -36,7 +47,9 @@ non-zero exit before its last line:
 8. paper suite on the web graph: kcore_peel, kcore_dd_sparse (k = 3, and
    k = 64 fused and per-round), core_numbers, bc_brandes and tc_count
    under "cuda" (counts set to 0 just before, read just after), then
-   "torch"; the quickstart graph on the card against the CPU first;
+   "torch"; the quickstart graph on the card against the CPU first; then
+   kcore_dd_sparse(k=64), core_numbers and tc_count under the profile of
+   phase 6;
 9. paper suite on kron: the seven calls of ``paper_suite.run_input``
    under both substrates, the same way;
 10. the other kernels at full width, each against its plain version on the
@@ -84,7 +97,11 @@ Each kernel row prints ``ms`` (CUDA events, 5 reps after a warm-up),
 ``plain_ms``, ``library_ms`` (one PyTorch call for the same function, timed
 as a yardstick only) and ``bound_ms`` / ``bound_by``: bytes over 3.35 TB/s
 against operations over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 attention,
-whose work could take the tensor cores.  A bf16 flash row also prints
+whose work could take the tensor cores.  The graph kernels' bytes are what
+the inputs need: edge_relax reads src for each slot (each active one
+under a slot mask), dst for each slot that sends and w for each active
+one (``bound_all_slots_ms`` counts every slot's, the formula of earlier
+runs); advance reads the live entries' f_idx, degree and row_ptr.  A bf16 flash row also prints
 ``tflops`` (those 4 d operations per unmasked pair over the kernel's
 time), ``tc_flops`` (the 6 d per pair the kernel runs: p @ v twice, for
 p's bf16 hi and lo halves) and ``route``.
@@ -172,18 +189,26 @@ def bits(torch, t):
 # ---- phase 4: kernels against their plain versions ---------------------------
 
 
-def edge_relax_cases(torch, g, gen):
+def edge_relax_cases(torch, g, gsym, gk, fr, gen):
     """(name, kwargs of ops.edge_relax) at the main path's shapes: the graph's
-    edge arrays, random vertex data with negatives and signed zeros."""
+    edge arrays, random vertex data with negatives and signed zeros; then
+    the shapes the main path gives the kernel besides: relax_batch on an
+    advance output whose budget is about 4x its total, pull over the
+    symmetrized graph's CSC (cc's int32 min, pr_pull's f32 add),
+    relax_edges under a delta-stepping edge mask, and unaligned slices
+    (odd start and length).  The first case is the kernel's table case."""
     dev = g.device
     n_pad, m_pad = g.n_pad, g.m_pad
 
-    def signed(n):
+    def signed(n, inf=0.0):
         x = torch.randn(n, generator=gen, device=dev) * 4
         pick = torch.rand(n, generator=gen, device=dev)
         x = torch.where(pick < 0.05, torch.tensor(-0.0, device=dev), x)
-        return torch.where((pick >= 0.05) & (pick < 0.1),
-                           torch.tensor(0.0, device=dev), x)
+        x = torch.where((pick >= 0.05) & (pick < 0.1), torch.tensor(0.0, device=dev), x)
+        if inf:   # unreached vertices: seeds beyond the neutral, clamped to FLT_MAX
+            x = torch.where(torch.rand(n, generator=gen, device=dev) < inf,
+                            torch.tensor(float("inf"), device=dev), x)
+        return x
 
     vmask = torch.rand(n_pad, generator=gen, device=dev) < 0.5
     vmask[g.sentinel] = False
@@ -195,6 +220,24 @@ def edge_relax_cases(torch, g, gen):
     seen = torch.rand(n_pad, generator=gen, device=dev) < 0.1
     csr = dict(src=g.src_idx, dst=g.col_idx)
     csc = dict(src=g.in_col_idx, dst=g.in_src_idx)
+    sym_csc = dict(src=gsym.in_col_idx, dst=gsym.in_src_idx, w=gsym.in_edge_w)
+    # an advance output: 2% of the vertices, a budget of 4x their mass (a
+    # padding tail of 3x the valid slots)
+    front = torch.rand(n_pad, generator=gen, device=dev) < 0.02
+    front[g.sentinel] = False
+    f = fr.compact(front, fr.pick_capacity(int(front.sum()), fr.ladder_capacities(
+        n_pad, g.block_size)), g.sentinel)
+    budget = -(-4 * int(g.budget_edge_mass(front)) // g.block_size) * g.block_size
+    bsrc, bdst, bw, bvalid, _ = gk.advance_frontier(
+        f.idx, f.count, g.out_deg, g.row_ptr, g.col_idx, g.edge_w, budget=budget,
+        sentinel=g.sentinel, m_pad=m_pad)
+    batch = dict(src=bsrc, dst=bdst, w=bw, mask=bvalid)
+    # delta-stepping: the light edges of a bucket's vertices (sssp_delta, delta 4)
+    bucket = torch.rand(n_pad, generator=gen, device=dev) < 0.05
+    bucket[g.sentinel] = False
+    light = bucket[g.src_idx] & (g.edge_w <= 4.0)
+    valid = g.valid_vertex_mask()
+    cut = slice(3, m_pad - 6)      # odd start, odd length
     return [
         ("push f32 min weighted vertex-mask", dict(
             **csr, w=w_signed, mask=vmask, src_val=signed(n_pad),
@@ -219,16 +262,60 @@ def edge_relax_cases(torch, g, gen):
             kind="or", use_weight=False, vertex_mask=True)),
         ("pull f32 min weighted vertex-mask (CSC)", dict(
             **csc, w=g.in_edge_w, mask=vmask, src_val=signed(n_pad),
-            out_init=signed(n_pad), kind="min", use_weight=True, vertex_mask=True)),
+            out_init=signed(n_pad), kind="min", use_weight=True, vertex_mask=True,
+            case="pull")),
+        ("push f32 min weighted vertex-mask, +inf seeds (bfs/sssp)", dict(
+            **csr, w=g.edge_w, mask=vmask, src_val=signed(n_pad),
+            out_init=signed(n_pad, inf=0.3), kind="min", use_weight=True,
+            vertex_mask=True)),
+        (f"relax_batch f32 min on advance output (total {int(bvalid.sum())}, "
+         f"budget {budget}), +inf seeds", dict(
+            **batch, src_val=signed(n_pad), out_init=signed(n_pad, inf=0.3), kind="min",
+            use_weight=True, vertex_mask=False, case="batch")),
+        ("relax_batch i32 add unweighted on advance output (kcore)", dict(
+            **batch, src_val=torch.ones(n_pad, dtype=torch.int32, device=dev),
+            out_init=torch.zeros(n_pad, dtype=torch.int32, device=dev), kind="add",
+            use_weight=False, vertex_mask=False, case="batch")),
+        ("pull i32 min unweighted vertex-mask (sym CSC, cc)", dict(
+            **sym_csc, mask=vmask, src_val=labels, out_init=labels, kind="min",
+            use_weight=False, vertex_mask=True, case="pull")),
+        ("pull f32 add weighted all-valid (sym CSC, pr_pull)", dict(
+            **sym_csc, mask=valid, src_val=torch.where(valid, torch.rand(
+                n_pad, generator=gen, device=dev) / g.n, 0.0),
+            out_init=torch.zeros(n_pad, device=dev), kind="add", use_weight=True,
+            vertex_mask=True, case="pull")),
+        ("relax_edges f32 min under a delta-stepping edge mask, +inf seeds", dict(
+            **csr, w=g.edge_w, mask=light, src_val=signed(n_pad, inf=0.5),
+            out_init=signed(n_pad, inf=0.5), kind="min", use_weight=True,
+            vertex_mask=False, case="edges")),
+        ("push f32 min unaligned slice [3, m_pad - 6), +inf seeds", dict(
+            src=g.src_idx[cut], dst=g.col_idx[cut], w=g.edge_w[cut], mask=vmask,
+            src_val=signed(n_pad), out_init=signed(n_pad, inf=0.3), kind="min",
+            use_weight=True, vertex_mask=True)),
+        ("relax_edges f32 min unaligned slice [3, m_pad - 6)", dict(
+            src=g.src_idx[cut], dst=g.col_idx[cut], w=g.edge_w[cut], mask=smask[cut],
+            src_val=signed(n_pad), out_init=signed(n_pad, inf=0.3), kind="min",
+            use_weight=True, vertex_mask=False, case="edges")),
     ]
+
+
+def beyond_neutral(torch, x, kind):
+    """Seeds a masked f32 min (max) slot clamps: above FLT_MAX (below
+    -FLT_MAX) in the ordered-int order."""
+    if x.dtype != torch.float32 or kind not in ("min", "max"):
+        return torch.zeros_like(x, dtype=torch.bool)
+    b = x.view(torch.int32)
+    key = torch.where(b >= 0, b, b ^ 0x7FFFFFFF)
+    return key > 0x7F7FFFFF if kind == "min" else key < -0x7F800000
 
 
 def run_edge_relax_case(torch, gk, name, kw):
     kind, use_w, vm = kw["kind"], kw["use_weight"], kw["vertex_mask"]
     args = (kw["src"], kw["dst"], kw["w"], kw["mask"], kw["src_val"], kw["out_init"])
+    case = {"case": kw["case"]} if "case" in kw else {}
 
     def kernel():
-        return gk.edge_relax(*args, kind=kind, use_weight=use_w, vertex_mask=vm)
+        return gk.edge_relax(*args, kind=kind, use_weight=use_w, vertex_mask=vm, **case)
 
     def plain():
         if vm:
@@ -253,7 +340,7 @@ def run_edge_relax_case(torch, gk, name, kw):
     else:
         same = torch.equal(bits(torch, got), bits(torch, want))
         check(same, f"{name}: kernel and plain version differ bitwise")
-        max_err = float((got.double() - want.double()).abs().max())
+        max_err = 0.0   # bitwise equal (inf - inf would read NaN)
 
     # library yardstick: one scatter_reduce_ over the ready, masked messages
     src, dst = args[0], args[1]
@@ -271,19 +358,31 @@ def run_edge_relax_case(torch, gk, name, kw):
     t_k = cuda_ms(torch, kernel)
     t_p = cuda_ms(torch, plain)
     t_l = cuda_ms(torch, lambda: buf.scatter_reduce_(0, dst64, msg, reduce))
+    # bound: what these inputs need read — src for every slot (for the
+    # active ones under a slot mask), the mask, dst for each slot that sends
+    # (the active ones, and every masked one when a seed lies beyond the
+    # neutral), w for the active ones — and the vertex arrays once
     m, n_pad = src.shape[0], args[5].shape[0]
     s = args[5].element_size()
-    nbytes = (m * (4 + 4 + (4 if use_w else 0) + (0 if vm else 1))
-              + n_pad * ((1 if vm else 0) + 3 * s))
+    n_act = int(keep.sum())
+    clamp = bool(beyond_neutral(torch, args[5], kind).any())
+    n_send = m if clamp else n_act
+    nbytes = ((4 * m if vm else 4 * n_act) + (n_pad if vm else m) + 4 * n_send
+              + (4 * n_act if use_w else 0) + 3 * n_pad * s)
     b_ms, b_by = bound_ms(nbytes, m)
+    all_slots_ms, _ = bound_ms(m * (4 + 4 + (4 if use_w else 0) + (0 if vm else 1))
+                               + n_pad * ((1 if vm else 0) + 3 * s), m)
     return dict(case=name, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=max_err,
-                compare="allclose" if float_add else "bitwise")
+                compare="allclose" if float_add else "bitwise", slots=m, active=n_act,
+                clamp=clamp, bound_all_slots_ms=all_slots_ms)
 
 
 def advance_cases(torch, g, fr, gen):
     """(name, mask, capacity, budget): a small rung whose budget a hub
-    overflows, and cap = n_pad with the largest sparse budget."""
+    overflows, cap = n_pad with the largest sparse budget (the kernel's
+    table case), an empty frontier, and a small rung whose budget covers
+    its mass."""
     dev = g.device
     hubs = torch.topk(g.out_deg, 16).indices
     lad_b = fr.ladder_capacities(g.m_pad, g.block_size)
@@ -292,11 +391,17 @@ def advance_cases(torch, g, fr, gen):
     small = torch.zeros(g.n_pad, dtype=torch.bool, device=dev)
     pick = torch.randint(0, g.n, (1500,), generator=gen, device=dev)
     small[pick] = True
+    leaves = small.clone()
     small[hubs[:4]] = True
     big = torch.rand(g.n_pad, generator=gen, device=dev) < 0.25
     big[hubs] = True
+    empty = torch.zeros(g.n_pad, dtype=torch.bool, device=dev)
+    leaves[hubs] = False
+    fits = fr.pick_capacity(int(g.budget_edge_mass(leaves)), lad_b)
     return [("small rung, hub overflow", small, cap_lad[1], lad_b[2]),
-            ("cap = n_pad, largest sparse budget", big, g.n_pad, largest)]
+            ("cap = n_pad, largest sparse budget", big, g.n_pad, largest),
+            ("f_count = 0", empty, cap_lad[1], lad_b[1]),
+            ("small rung, budget covers the mass", leaves, cap_lad[1], fits)]
 
 
 def run_advance_case(torch, gk, fr, g, name, mask, cap, budget):
@@ -327,11 +432,136 @@ def run_advance_case(torch, gk, fr, g, name, mask, cap, budget):
     t_p = cuda_ms(torch, plain)
     t_l = cuda_ms(torch, lambda: torch.searchsorted(cum, j, right=True, out_int32=True))
     emitted = min(total, budget)
-    nbytes = 4 * cap + 4 + 4 * live * 2 + 8 * emitted + 13 * budget + 4
+    # f_count; f_idx, the degree and row_ptr gathers of the live entries;
+    # col_idx and edge_w of the emitted slots; 13 B written per slot; total
+    nbytes = 4 + 12 * live + 8 * emitted + 13 * budget + 4
     b_ms, b_by = bound_ms(nbytes, cap + budget * max(1, cap.bit_length()))
     return dict(case=name, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=0.0, compare="bitwise",
                 count=int(f.count), total=total, budget=budget, cap=cap)
+
+
+# ---- the profile of a path by kernel -----------------------------------------
+
+# the profile's families: a fragment of a kernel's name -> its family
+PROFILE_FAMILIES = (("edge_relax", "edge_relax"), ("relax_seed", "edge_relax"),
+                    ("advance_", "advance"), ("intersect_kernel", "intersect"))
+
+
+def kernel_label(name):
+    """A kernel's name without its namespaces, return type and arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    return name if len(name) <= 160 else name[:157] + "..."
+
+
+def profile_by_kernel(torch, gk, runs):
+    """Run each ``name: Run`` once more on the card and split its device
+    time by kernel.  Returns ``(route, rows, wall_ms)``, rows
+    ``{kernel, family, calls, total_ms, mean_ms}`` by total time.  The route
+    is ``torch.profiler`` (CUDA activity, ``key_averages()``: every kernel,
+    memset and copy); where that records no device time, the runs go again
+    with CUDA events around each graph_ops wrapper call (the graph kernels
+    only, each with its seed copy or scan), and the route says so."""
+    from torch.profiler import ProfilerActivity, profile
+    rows, failure = {}, "no device time"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for run in runs.values():
+                run.fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+    except (RuntimeError, AssertionError) as err:
+        events, failure = (), f"{type(err).__name__}: {err}"
+    for ev in events:
+        ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        if ms <= 0:
+            continue
+        label = kernel_label(ev.key)
+        fam = next((f for frag, f in PROFILE_FAMILIES if frag in label), "other")
+        row = rows.setdefault(label, dict(kernel=label, family=fam, calls=0, total_ms=0.0))
+        row["calls"] += ev.count
+        row["total_ms"] += ms
+    route = "torch.profiler"
+    if not rows:
+        route = f"cuda events around each graph_ops wrapper call (profiler: {failure})"
+        rows, wall = event_profile(torch, gk, runs)
+    out = sorted(rows.values(), key=lambda r: -r["total_ms"])
+    for row in out:
+        row["mean_ms"] = row["total_ms"] / row["calls"]
+    return route, out, wall
+
+
+def event_profile(torch, gk, runs):
+    """The runs with a CUDA event pair around each call of a graph_ops
+    wrapper (the operator seam looks them up on the package at each call);
+    rows by case, dtype and kind."""
+    names = ("edge_relax", "advance_frontier", "intersect_count")
+    saved = {n: getattr(gk, n) for n in names}
+    marks = []
+
+    def label(name, args, kw):
+        if name != "edge_relax":
+            return name
+        vm = kw.get("vertex_mask", True)
+        case = kw.get("case") or ("push" if vm else "edges")
+        dtype = str(args[5].dtype).removeprefix("torch.")
+        weighted = "weighted" if kw.get("use_weight", True) else "unweighted"
+        return f"edge_relax[{case}, {dtype}, {kw.get('kind', 'min')}, {weighted}]"
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            marks.append((label(name, args, kw), a, b))
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(gk, n, timed(n, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for run in runs.values():
+            run.fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in saved.items():
+            setattr(gk, n, fn)
+    rows = {}
+    for lab, a, b in marks:
+        fam = next((f for frag, f in PROFILE_FAMILIES if frag in lab), lab.split("_")[0])
+        row = rows.setdefault(lab, dict(kernel=lab, family=fam, calls=0, total_ms=0.0))
+        row["calls"] += 1
+        row["total_ms"] += a.elapsed_time(b)
+    return rows, wall
+
+
+def print_profile(torch, gk, label, runs, wall_ms):
+    """Profile ``runs`` and print one line per kernel, then the families'
+    totals and the device's busy share: its time over ``wall_ms``, the
+    same runs' wall time without the profiler (which slows the host)."""
+    route, rows, profiled_wall = profile_by_kernel(torch, gk, runs)
+    fams = {}
+    for row in rows:
+        fams[row["family"]] = fams.get(row["family"], 0.0) + row["total_ms"]
+    for row in rows:
+        print(f"  profile {label} " + json.dumps(row), flush=True)
+    device = sum(fams.values())
+    print(f"profile {label}: route={route} device_ms={device} wall_ms={wall_ms} "
+          f"device_busy_share={device / wall_ms} (profiled wall {profiled_wall} ms) "
+          f"families={json.dumps(fams)}", flush=True)
 
 
 # ---- phases 5 and 6: small check and the main path --------------------------
@@ -1070,7 +1300,7 @@ def main() -> int:
     # 4. kernels against their plain versions
     rng = torch.Generator(device="cuda").manual_seed(11)
     relax_rows = []
-    for name, kw in edge_relax_cases(torch, g, rng):
+    for name, kw in edge_relax_cases(torch, g, gsym, gk, fr, rng):
         row = run_edge_relax_case(torch, gk, name, kw)
         relax_rows.append(row)
         print("  edge_relax " + json.dumps(row), flush=True)
@@ -1105,6 +1335,10 @@ def main() -> int:
     check(abs(float(rank.double().sum()) - 1.0) < 1e-3, "pagerank does not sum to 1")
     print("main path: cuda == torch (labels bitwise, pagerank allclose, RunStats equal)",
           flush=True)
+    # 6b. the main path once more on the "cuda" substrate, its device time by kernel
+    with ops.substrate_scope("cuda"):
+        print_profile(torch, gk, "main path", main_runs,
+                      sum(run[2] for run in cuda_runs.values()))
 
     # 7. the suite's kernels: int32 add at the symmetrized graph's shapes,
     # then the kron input and intersect on both graphs' oriented lists
@@ -1150,6 +1384,13 @@ def main() -> int:
     check(web_cuda["tc_count"][0] > 0, "no triangles on the web graph")
     print(f"web suite: cuda == torch; kcore(64) keeps {int(alive64.sum())} of {gsym.n}",
           flush=True)
+    # 8b. kcore's sparse rounds and peel loops, and tc's intersections,
+    # their device time by kernel
+    suite_runs = {k: v for k, v in web_suite_runs(suite, g, gsym, source).items()
+                  if k in ("kcore_dd_sparse(k=64)", "core_numbers(k_max=64)", "tc_count")}
+    with ops.substrate_scope("cuda"):
+        print_profile(torch, gk, "kcore and tc", suite_runs,
+                      sum(web_cuda[k][2] for k in suite_runs))
     del web_cuda, web_torch
 
     # 9. the seven paper benchmarks on the low-diameter kron input

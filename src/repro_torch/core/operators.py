@@ -135,8 +135,10 @@ def push_dense(
         return gk.det_push_ref(s, d, g.edge_w, src_val, active, out_init,
                                use_weight)
     if sub == "cuda":
+        # the reversed sweep scatters into the sorted src list: pull's shape
         return gk.edge_relax(s, d, g.edge_w, active, src_val, out_init,
-                             kind=kind, use_weight=use_weight, vertex_mask=True)
+                             kind=kind, use_weight=use_weight, vertex_mask=True,
+                             case="pull" if reverse else "push")
     return gk.push_ref(s, d, g.edge_w, src_val, active, out_init, kind,
                        use_weight)
 
@@ -163,7 +165,8 @@ def pull_dense(
     if sub == "cuda":
         return gk.edge_relax(g.in_col_idx, g.in_src_idx, g.in_edge_w, active,
                              src_val, out_init, kind=kind,
-                             use_weight=use_weight, vertex_mask=True)
+                             use_weight=use_weight, vertex_mask=True,
+                             case="pull")
     return gk.pull_ref(g.in_col_idx, g.in_src_idx, g.in_edge_w, src_val,
                        active, out_init, kind, use_weight)
 
@@ -207,7 +210,8 @@ def relax_batch(
     if sub == "cuda":
         return gk.edge_relax(batch.src, batch.dst, batch.w, batch.valid,
                              src_val, out_init, kind=kind,
-                             use_weight=use_weight, vertex_mask=False)
+                             use_weight=use_weight, vertex_mask=False,
+                             case="batch")
     return gk.relax_ref(batch.src, batch.dst, batch.w, batch.valid, src_val,
                         out_init, kind, use_weight)
 
@@ -231,7 +235,8 @@ def relax_edges(
     if sub == "cuda":
         return gk.edge_relax(g.src_idx, g.col_idx, g.edge_w, edge_mask,
                              src_val, out_init, kind=kind,
-                             use_weight=use_weight, vertex_mask=False)
+                             use_weight=use_weight, vertex_mask=False,
+                             case="edges")
     return gk.relax_ref(g.src_idx, g.col_idx, g.edge_w, edge_mask, src_val,
                         out_init, kind, use_weight)
 

@@ -45,8 +45,10 @@ _F = ctypes.c_float
 # them.  ``<stem>_error_string`` is added to each by ``load``.
 SIGNATURES = {
     "graph_ops": {
+        # src, dst, w, mask, src_val, out_init, out, m, n_pad, dtype, kind,
+        # use_weight, case, flag, stream
         "graph_ops_edge_relax": (
-            [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),
         "graph_ops_advance": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _P, _P, _P, _P, _P, _P, _P, _P], _I),

@@ -17,6 +17,9 @@ from . import ref
 
 _KIND = {"min": 0, "max": 1, "add": 2, "or": 3}
 _DTYPE = {torch.float32: 0, torch.int32: 1, torch.uint8: 2}
+# edge_relax's cases: (id, takes a vertex mask)
+_CASE = {"push": (0, True), "pull": (1, True), "batch": (2, False),
+         "edges": (3, False)}
 # (dtype, kind) pairs the edge_relax kernel takes, and whether weighted
 _RELAX_TYPES = {
     (torch.float32, "min"): True, (torch.float32, "max"): True,
@@ -43,12 +46,16 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device):
 
 
 def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
-               use_weight: bool = True, vertex_mask: bool = True):
+               use_weight: bool = True, vertex_mask: bool = True,
+               case: str | None = None):
     """Push/pull/batch relax over an edge list.
 
     ``mask``: (n_pad,) active-vertex bitmap when ``vertex_mask`` (push and
     pull), else a per-edge validity mask aligned with ``src`` (batch
     relax).  Returns a new (n_pad,) accumulator seeded from ``out_init``.
+    ``case`` names the caller's sweep — ``"push"`` or ``"pull"`` (vertex
+    mask), ``"batch"`` or ``"edges"`` (per-slot mask); it picks the
+    kernel's name in a profile, not its code (default: push or edges).
     """
     if src.device.type == "cpu":
         if vertex_mask:
@@ -59,6 +66,11 @@ def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
     dev = src.device
     if dev.type != "cuda":
         raise ValueError(f"edge_relax runs on cuda or cpu tensors, not {dev}")
+    if case is None:
+        case = "push" if vertex_mask else "edges"
+    if _CASE.get(case, (None, None))[1] != vertex_mask:
+        raise ValueError(f"edge_relax case {case!r} does not take "
+                         f"vertex_mask={vertex_mask}")
     m = src.shape[0]
     n_pad = out_init.shape[0]
     widen = kind == "or" and out_init.dtype == torch.bool
@@ -76,16 +88,17 @@ def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
     _expect(mask, "mask", torch.bool, (n_pad if vertex_mask else m,), dev)
     _expect(src_val, "src_val", out_init.dtype, (n_pad,), dev)
     _expect(out_init, "out_init", out_init.dtype, (n_pad,), dev)
-    out = torch.empty_like(out_init)
-    out.copy_(out_init)
+    out = torch.empty_like(out_init)   # the launch seeds it from out_init
     if kind == "or" and (n_pad % 4 or out.data_ptr() % 4):
         raise ValueError("the 'or' kernel updates aligned 32-bit words: "
                          "n_pad must be a multiple of 4")
+    flag = torch.empty((1,), dtype=torch.int32, device=dev)
     lib = build.load("graph_ops")
     rc = lib.graph_ops_edge_relax(
         src.data_ptr(), dst.data_ptr(), w.data_ptr(), mask.data_ptr(),
-        src_val.data_ptr(), out.data_ptr(), m, _DTYPE[out.dtype], _KIND[kind],
-        int(use_weight), int(vertex_mask), _stream())
+        src_val.data_ptr(), out_init.data_ptr(), out.data_ptr(), m, n_pad,
+        _DTYPE[out.dtype], _KIND[kind], int(use_weight), _CASE[case][0],
+        flag.data_ptr(), _stream())
     build.check(lib, rc, "edge_relax")
     edge_relax.launches += 1
     return out.to(torch.bool) if widen else out
@@ -117,7 +130,8 @@ def advance_frontier(f_idx, f_count, out_deg, row_ptr, col_idx, edge_w, *,
     _expect(edge_w, "edge_w", torch.float32, (m_pad,), dev)
     i32 = dict(dtype=torch.int32, device=dev)
     cum = torch.empty((cap,), **i32)
-    tiles = torch.empty(((cap + 1023) // 1024,), **i32)
+    # the scan's tile status words (8 B per 2,048 entries) and its ticket
+    tiles = torch.empty((2 * ((cap + 2047) // 2048) + 2,), **i32)
     total = torch.empty((1,), **i32)
     out_src = torch.empty((budget,), **i32)
     out_dst = torch.empty((budget,), **i32)

@@ -10,11 +10,20 @@ and prints every synchronised wall time with their min, median and max as
 one JSON line.  ``--src`` picks the source tree whose ``repro_torch`` is
 timed (default: this checkout's ``src``), so that two commits can be
 compared on one card in one call: parent, change, change, parent.
+
+It then runs the path once more, and kcore's sparse rounds and peel loops
+(``kcore_dd_sparse(k=64)``, ``core_numbers(k_max=64)``) once, under
+``chip_smoke.py``'s profile (one line per kernel: calls, total and mean
+device ms), and times the tree's ``edge_relax`` and ``advance_frontier``
+on ``chip_smoke.py``'s phase-4 cases (CUDA events, 5 reps after a
+warm-up), so two commits also compare kernel by kernel.  Both take
+``chip_smoke.py`` from this checkout.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -39,10 +48,14 @@ def main() -> int:
     import numpy as np
 
     import repro_torch as tc
+    from repro_torch.core import frontier as fr
     from repro_torch.core import operators as ops
-    from repro_torch.core.algorithms import bfs, cc, pagerank, sssp
+    from repro_torch.core.algorithms import bfs, cc, kcore, pagerank, sssp
     from repro_torch.graphs import generators as gen_mod
+    from repro_torch.kernels import graph_ops as gk
     from repro_torch.kernels.graph_ops import build
+    sys.path.insert(0, str(Path(__file__).resolve().parents[3]))
+    import chip_smoke as cs
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -78,7 +91,48 @@ def main() -> int:
     print(json.dumps({"src": args.src, "card": card, "m": g.m, "sym_m": gsym.m,
                       "repeat": args.repeat, "wall_ms": walls, "summary": summary}),
           flush=True)
+    kruns = {"kcore_dd_sparse(k=64)": lambda: kcore.kcore_dd_sparse(gsym, 64),
+             "core_numbers(k_max=64)": lambda: kcore.core_numbers(gsym, 64)}
+    with ops.substrate_scope("cuda"):
+        kwall = 0.0
+        for fn in kruns.values():   # their wall time without the profiler
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            kwall += (time.perf_counter() - t0) * 1e3
+        gk.reset_launches()
+        cs.print_profile(torch, gk, "main path", {k: cs.Run(v) for k, v in runs.items()},
+                         sum(v["median"] for v in summary.values()))
+        print(f"main path launches: {json.dumps(gk.launch_counts())}", flush=True)
+        gk.reset_launches()
+        cs.print_profile(torch, gk, "kcore", {k: cs.Run(v) for k, v in kruns.items()},
+                         kwall)
+        print(f"kcore launches: {json.dumps(gk.launch_counts())}", flush=True)
+    kernel_cases(torch, cs, gk, fr, g, gsym)
     return 0
+
+
+def kernel_cases(torch, cs, gk, fr, g, gsym):
+    """The tree's edge_relax and advance_frontier on chip_smoke's phase-4
+    inputs (a tree whose edge_relax takes no ``case`` is called without)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    takes_case = "case" in inspect.signature(gk.edge_relax).parameters
+    for name, kw in cs.edge_relax_cases(torch, g, gsym, gk, fr, gen):
+        extra = {"case": kw["case"]} if takes_case and "case" in kw else {}
+        args = (kw["src"], kw["dst"], kw["w"], kw["mask"], kw["src_val"], kw["out_init"])
+        ms = cs.cuda_ms(torch, lambda: gk.edge_relax(
+            *args, kind=kw["kind"], use_weight=kw["use_weight"],
+            vertex_mask=kw["vertex_mask"], **extra))
+        print("  kernel case " + json.dumps(dict(kernel="edge_relax", case=name, ms=ms)),
+              flush=True)
+    for name, mask, cap, budget in cs.advance_cases(torch, g, fr, gen):
+        f = fr.compact(mask, cap, g.sentinel)
+        ms = cs.cuda_ms(torch, lambda: gk.advance_frontier(
+            f.idx, f.count, g.out_deg, g.row_ptr, g.col_idx, g.edge_w, budget=budget,
+            sentinel=g.sentinel, m_pad=g.m_pad))
+        print("  kernel case " + json.dumps(dict(kernel="advance", case=name, ms=ms)),
+              flush=True)
 
 
 if __name__ == "__main__":
