@@ -11,10 +11,11 @@ non-zero exit before its last line:
 2. build: every kernel library (``src/repro_torch/kernels/*/csrc/*.cu``:
    graph_ops, flash_attention, spmm_bsr, embedding_bag), one ``nvcc`` each,
    all at once, into the git-ignored ``build/repro_torch``; then, for each
-   instantiation of the bf16 flash-attention kernel (``flash_tc_kernel``),
-   its registers, spills and shared memory from ``-Xptxas -v`` (no spills
-   allowed) and, where the toolkit has ``cuobjdump``, the count of
-   ``HMMA`` (tensor-core) instructions in its SASS (none is a failure);
+   instantiation of the two tensor-core kernels (the bf16 flash-attention
+   kernel ``flash_tc_kernel`` and ``spmm_kernel``), its registers, spills
+   and shared memory from ``-Xptxas -v`` (no spills allowed) and, where
+   the toolkit has ``cuobjdump``, the count of ``HMMA`` (tensor-core)
+   instructions in its SASS (none is a failure);
 3. graph: ``web_crawl_like(512, 13, 16, 3)`` with random weights (about
    4.19 M vertices and 57 M edges), built as CSR+CSC and symmetrized
    (CSR+CSC, for cc and pagerank) on the card;
@@ -43,7 +44,10 @@ non-zero exit before its last line:
    input ``kron(20, 16, seed=1)`` (``table3_suite(10)["kron30"]``, built as
    ``examples/paper_suite.py`` builds it) and ``intersect`` on a chunk of
    each graph's oriented edge list and on a tail chunk of padding, each
-   equal to its plain version exactly;
+   equal to its plain version exactly; then on each whole oriented list,
+   one call (as ``tc_count`` makes it) against a launch per chunk, every
+   chunk's count equal to the plain version's, with what the list's
+   candidates meet in the kernel's tiles (``intersect_work``);
 8. paper suite on the web graph: kcore_peel, kcore_dd_sparse (k = 3, and
    k = 64 fused and per-round), core_numbers, bc_brandes and tc_count
    under "cuda" (counts set to 0 just before, read just after), then
@@ -65,7 +69,9 @@ non-zero exit before its last line:
    through the tensor cores
    (``tc_launches`` must rise); ``spmm_bsr`` on
    ``web_crawl_like(16, 13, 16, 3)`` in block-ELL (the port's ``to_bsr``),
-   F = 128, f32, against the plain version (2e-4) and the edge list (4e-4);
+   F = 128, f32 against the plain version (2e-4) and the edge list (4e-4),
+   then bf16 x bf16 and both mixed dtypes against the plain version
+   (``SPMM_BF16_TOL`` where out is bf16, ``SPMM_TOL`` where it is f32);
    ``embedding_bag`` on MIND's 2^23 x 64 f32 item table under its
    serve_bulk (262,144 x 50) and serve_p99 (512 x 50) batches, sum and
    mean, bitwise;
@@ -93,7 +99,9 @@ residual-threshold exit reads float sums taken in another order (seen on
 kron: 143 rounds under "cuda", 142 under "torch").  Its rounds are all
 dense then, each charging m, and that is checked on both sides.
 
-Each kernel row prints ``ms`` (CUDA events, 5 reps after a warm-up),
+Each kernel row prints ``ms`` (CUDA events, 5 reps after a warm-up; an
+intersect row also ``device_ms``, the profiler's device time of a call,
+since a single call's events mostly time the host's launches),
 ``plain_ms``, ``library_ms`` (one PyTorch call for the same function, timed
 as a yardstick only) and ``bound_ms`` / ``bound_by``: bytes over 3.35 TB/s
 against operations over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 attention,
@@ -169,6 +177,39 @@ def cuda_ms(torch, fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(torch, fn):
+    """Call ``fn`` under ``torch.profiler`` (CUDA activity) and return
+    ``(key_averages(), None)``, or ``(None, error)`` where the profiler
+    itself fails to start or to stop.  What ``fn`` raises, a failed launch
+    or a CUDA fault at the synchronize, is not caught."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except (RuntimeError, AssertionError) as err:
+        return None, err
+    fn()
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        return prof.key_averages(), None
+    except (RuntimeError, AssertionError) as err:
+        return None, err
+
+
+def device_ms(torch, fn, reps=5):
+    """Device time of one call of ``fn`` (every kernel, memset and copy it
+    launches), from ``torch.profiler`` over ``reps`` calls after a warm-up;
+    None where the profiler fails or records no device time.  Unlike
+    ``cuda_ms`` it leaves out the gaps in which the card waits for the
+    host."""
+    fn()
+    torch.cuda.synchronize()
+    events, _ = profiled(torch, lambda: [fn() for _ in range(reps)])
+    us = sum(getattr(ev, "self_device_time_total", 0) or 0 for ev in events or ())
+    return us / 1e3 / reps if us > 0 else None
 
 
 def bound_ms(nbytes, nops, ops_per_s=H100_F32_OPS_PER_S):
@@ -445,7 +486,7 @@ def run_advance_case(torch, gk, fr, g, name, mask, cap, budget):
 
 # the profile's families: a fragment of a kernel's name -> its family
 PROFILE_FAMILIES = (("edge_relax", "edge_relax"), ("relax_seed", "edge_relax"),
-                    ("advance_", "advance"), ("intersect_kernel", "intersect"))
+                    ("advance_", "advance"), ("intersect_", "intersect"))
 
 
 def kernel_label(name):
@@ -468,20 +509,13 @@ def profile_by_kernel(torch, gk, runs):
     memset and copy); where that records no device time, the runs go again
     with CUDA events around each graph_ops wrapper call (the graph kernels
     only, each with its seed copy or scan), and the route says so."""
-    from torch.profiler import ProfilerActivity, profile
-    rows, failure = {}, "no device time"
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for run in runs.values():
-                run.fn()
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-    except (RuntimeError, AssertionError) as err:
-        events, failure = (), f"{type(err).__name__}: {err}"
-    for ev in events:
+    rows = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events, err = profiled(torch, lambda: [run.fn() for run in runs.values()])
+    wall = (time.perf_counter() - t0) * 1e3
+    failure = "no device time" if err is None else f"{type(err).__name__}: {err}"
+    for ev in events or ():
         ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
         if ms <= 0:
             continue
@@ -709,31 +743,35 @@ def oriented_chunks(torch, tri, g):
     return adj, osrc, odst, row_len, work, ne
 
 
-def intersect_cases(torch, tri, g_web, g_kron):
-    """(name, adj, src, dst, row_len, sentinel): the web graph's median
-    chunk by candidate mass, kron's heaviest chunk (its hubs), and a tail
-    chunk of the web list's last 1,024 edges padded with sentinels."""
-    cases = []
-    for label, g in (("web", g_web), ("kron", g_kron)):
-        adj, osrc, odst, row_len, work, ne = oriented_chunks(torch, tri, g)
-        if label == "web":
-            c = int(torch.argsort(work)[work.shape[0] // 2])
-            name = f"web chunk {c} (median candidate mass)"
-        else:
-            c = int(torch.argmax(work))
-            name = f"kron chunk {c} (heaviest: hubs)"
-        sl = slice(c * INTERSECT_CHUNK, (c + 1) * INTERSECT_CHUNK)
-        cases.append((name, adj, osrc[sl], odst[sl], row_len, g.sentinel))
-        if label == "web":
-            k = min(ne, 1024)
-            fill = torch.full((INTERSECT_CHUNK - k,), g.sentinel, dtype=torch.int32,
-                              device=g.device)
-            cases.append(("web tail (1,024 edges, 31,744 padding)", adj,
-                          torch.cat([osrc[ne - k:ne], fill]),
-                          torch.cat([odst[ne - k:ne], fill]), row_len, g.sentinel))
-        print(f"  oriented {label}: ne={ne} dmax={adj.shape[1]} "
-              f"chunks={osrc.shape[0] // INTERSECT_CHUNK}", flush=True)
+def intersect_cases(torch, label, g, adj, osrc, odst, row_len, work, ne):
+    """(name, adj, src, dst, row_len, sentinel) on one graph's oriented list:
+    the web graph's median chunk by candidate mass and a tail chunk of its
+    last 1,024 edges padded with sentinels, or kron's heaviest chunk (its
+    hubs)."""
+    if label == "web":
+        c = int(torch.argsort(work)[work.shape[0] // 2])
+        name = f"web chunk {c} (median candidate mass)"
+    else:
+        c = int(torch.argmax(work))
+        name = f"kron chunk {c} (heaviest: hubs)"
+    sl = slice(c * INTERSECT_CHUNK, (c + 1) * INTERSECT_CHUNK)
+    cases = [(name, adj, osrc[sl], odst[sl], row_len, g.sentinel)]
+    if label == "web":
+        k = min(ne, 1024)
+        fill = torch.full((INTERSECT_CHUNK - k,), g.sentinel, dtype=torch.int32,
+                          device=g.device)
+        cases.append(("web tail (1,024 edges, 31,744 padding)", adj,
+                      torch.cat([osrc[ne - k:ne], fill]),
+                      torch.cat([odst[ne - k:ne], fill]), row_len, g.sentinel))
     return cases
+
+
+def intersect_bytes(torch, src, dst, row_len, sentinel):
+    """What one chunk must read: src and dst once, each row it touches (its
+    real entries) once, and the count written."""
+    rows = torch.unique(torch.cat([src, dst]).long())
+    rows = rows[rows != sentinel]
+    return 8 * src.shape[0] + 4 * int(row_len[rows].sum()) + 4
 
 
 def run_intersect_case(torch, gk, name, adj, src, dst, row_len, sentinel):
@@ -754,22 +792,116 @@ def run_intersect_case(torch, gk, name, adj, src, dst, row_len, sentinel):
     # library yardstick: the search step alone, on the ready gathered rows
     nu, nv = adj[src.long()], adj[dst.long()]
     t_k = cuda_ms(torch, kernel)
+    t_dev = device_ms(torch, kernel)
     t_p = cuda_ms(torch, plain)
     t_l = cuda_ms(torch, lambda: torch.searchsorted(nv, nu))
     del nu, nv
     # bound: src/dst once, each touched row's real entries once, the count;
     # operations: one compare per probe of each candidate's search
-    rows = torch.unique(torch.cat([src, dst]).long())
-    rows = rows[rows != sentinel]
-    lens = row_len[rows]
-    nbytes = 8 * src.shape[0] + 4 * int(lens.sum()) + 4
+    nbytes = intersect_bytes(torch, src, dst, row_len, sentinel)
     ls, ld = row_len[src.long()], row_len[dst.long()]
     probes = int((ls * torch.ceil(torch.log2(ld.double() + 1)).long()).sum())
     b_ms, b_by = bound_ms(nbytes, probes)
-    return dict(case=name, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=abs(int(got) - count), compare="bitwise",
-                count=count, edges=int((src != sentinel).sum()), dmax=adj.shape[1],
-                bytes=nbytes, probes=probes)
+    return dict(case=name, ms=t_k, device_ms=t_dev, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=abs(int(got) - count),
+                compare="bitwise", count=count, edges=int((src != sentinel).sum()),
+                candidates=int(ls.sum()), dmax=adj.shape[1], bytes=nbytes, probes=probes)
+
+
+# the intersect kernel's tile: candidates a block takes at a time, edges and
+# target-row entries it stages (graph_ops.cu kITile, kIEdges, kIRows)
+INTERSECT_TILE, INTERSECT_EDGES, INTERSECT_ROWS = 2048, 1024, 6144
+
+
+def intersect_work(torch, osrc, odst, row_len):
+    """What the intersect kernel's tiles meet on a whole list, by its own
+    rules: candidates (each edge's source-row length), tiles, the share of
+    candidates whose target row is staged in shared memory, lies past the
+    row stage, or sits in a tile of too many edges to stage; the target-row
+    entries staged per candidate; and the mean bisection steps
+    (ceil(log2(len + 1)) of the target row) of a candidate, overall and of
+    those that probe device memory.  Candidate-weighted mean lengths of the
+    source and target rows say how full a warp would be under one edge a
+    warp, a lane a candidate."""
+    ls = row_len[osrc.long()]
+    lt = row_len[odst.long()]
+    cum = torch.cumsum(ls, 0)
+    total = int(cum[-1])
+    tiles = -(-total // INTERSECT_TILE)
+    c0 = torch.arange(tiles, device=ls.device, dtype=torch.int64) * INTERSECT_TILE
+    k0 = torch.searchsorted(cum, c0, right=True)
+    k1 = torch.cat([k0[1:], torch.searchsorted(cum, cum.new_tensor([total - 1]), right=True)])
+    nk = k1 - k0 + 1
+    # one (tile, edge) pair for each edge of each tile
+    t = torch.repeat_interleave(torch.arange(tiles, device=ls.device), nk)
+    first = torch.cumsum(nk, 0) - nk
+    k = k0[t] + torch.arange(t.shape[0], device=ls.device) - first[t]
+    del first
+    cands = (torch.minimum(cum[k], c0[t] + INTERSECT_TILE) -
+             torch.maximum(cum[k] - ls[k], c0[t])).clamp_min(0)
+    ln = torch.where(ls[k] > 0, lt[k], 0)
+    ends = torch.cumsum(ln, 0)
+    tile_base = (ends - ln)[torch.cumsum(nk, 0) - nk]
+    off_end = ends - tile_base[t]
+    staged_tile = (nk <= INTERSECT_EDGES)[t]
+    in_stage = staged_tile & (off_end <= INTERSECT_ROWS)
+    past = staged_tile & ~in_stage
+    steps = torch.ceil(torch.log2(lt[k].double() + 1))
+    staged_entries = float(torch.where(staged_tile & (off_end <= INTERSECT_ROWS), ln, 0).sum())
+    out = dict(candidates=total, tiles=tiles,
+               staged_tile_share=float((nk <= INTERSECT_EDGES).double().mean()),
+               candidates_in_staged_rows=float(cands[in_stage].sum()) / total,
+               candidates_past_row_stage=float(cands[past].sum()) / total,
+               candidates_in_unstaged_tiles=float(cands[~staged_tile].sum()) / total,
+               staged_entries_per_candidate=staged_entries / total,
+               mean_steps=float((cands * steps).sum()) / total,
+               mean_steps_device_memory=float((cands * steps)[~in_stage].sum()) /
+               max(float(cands[~in_stage].sum()), 1.0),
+               mean_edges_per_tile=float(nk.double().mean()),
+               source_len_by_candidate=float((ls.double() * ls).sum()) / total,
+               target_len_by_candidate=float((ls.double() * lt).sum()) / total)
+    del ls, lt, cum, t, k, cands, ln, ends, off_end, staged_tile, in_stage, past, steps
+    return out
+
+
+def intersect_whole_list(torch, gk, label, adj, osrc, odst, row_len, sentinel):
+    """tc_count's intersections on one graph's whole padded list: one call
+    (one launch per int32 group of chunks) against a launch per chunk, each
+    chunk's count bitwise equal to the plain version's; the bound sums
+    every chunk's bytes."""
+    ch = INTERSECT_CHUNK
+    want = gk.intersect_chunks_ref(adj, osrc, odst, sentinel, ch)
+
+    def one():
+        return gk.intersect_count(adj, osrc, odst, sentinel=sentinel, chunk=ch)
+
+    def per_chunk():
+        return torch.stack([gk.intersect_count(adj, osrc[c:c + ch], odst[c:c + ch],
+                                               sentinel=sentinel)
+                            for c in range(0, osrc.shape[0], ch)])
+
+    before = gk.intersect_count.launches
+    got = one()
+    torch.cuda.synchronize()
+    launches = gk.intersect_count.launches - before
+    check(launches >= 1, f"intersect whole {label} list: no launch counted")
+    check(torch.equal(got, want),
+          f"intersect whole {label} list: chunk counts differ from the plain version's")
+    check(torch.equal(per_chunk(), want),
+          f"intersect whole {label} list: the per-chunk route differs")
+    nbytes = sum(intersect_bytes(torch, osrc[c:c + ch], odst[c:c + ch], row_len, sentinel)
+                 for c in range(0, osrc.shape[0], ch))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    row = dict(case=f"{label} whole list ({want.shape[0]} chunks of {ch})",
+               launches=launches, ms=cuda_ms(torch, one, reps=3),
+               device_ms=device_ms(torch, one, reps=3),
+               ms_per_chunk_launches=cuda_ms(torch, per_chunk, reps=2),
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, count=int(want.sum()),
+               max_abs_err=0, compare="bitwise, every chunk")
+    row.update(intersect_work(torch, osrc, odst, row_len))
+    if row["device_ms"] is not None:
+        row["device_ps_per_candidate"] = row["device_ms"] * 1e9 / row["candidates"]
+    return row
 
 
 def small_suite_check(torch, np, tc, suite, gen_mod):
@@ -885,6 +1017,25 @@ LAYER_RTOL, LAYER_ATOL_RMS = 8e-3, 5e-2
 F32_TOL = 2e-5         # the reference's f32 tolerance (tests/test_kernels.py TOL)
 SPMM_TOL = 2e-5 * 10   # the reference's f32 SpMM tolerance against its oracle
 SPMM_COO_TOL = 2e-5 * 20
+SPMM_BF16_TOL = 2e-2 * 10   # the CPU tests' bf16 SpMM tolerance, for bf16 outputs
+# Under bf16 out the reference rounds each slot's product and the running
+# sum to bf16.  The kernel's f32 products differ from the plain version's
+# (cuBLAS) in the last bits, so a rounding can land one bf16 ulp apart, and
+# that ulp of a large running sum survives where later slots cancel it
+# (at full size with f32 blocks and bf16 x, a few outputs of a small value
+# in rows whose sums pass 64).  A bf16 output may therefore also
+# differ by one bf16 ulp of the largest sum its row could reach (the sum
+# of its slots' |A| |X| products); the rows print how many needed it.
+H100_TF32_TC_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
+# (blocks dtype, x dtype) of the SpMM cases beside f32 x f32, and the
+# tensor-core products the kernel runs for each: one bf16 pass, or a TF32
+# split whose bf16 operand has no low half
+SPMM_DTYPES = (("bfloat16", "bfloat16", 1, H100_BF16_TC_OPS_PER_S),
+               ("float32", "bfloat16", 2, H100_TF32_TC_OPS_PER_S),
+               ("bfloat16", "float32", 2, H100_TF32_TC_OPS_PER_S))
+SPMM_ROUTE = ("tensor cores: mma.sync m16n8k8 TF32 split hi/lo (three products f32 x f32, "
+              "two mixed), m16n8k16 bf16 x bf16; f32 accumulators; a cp.async ring of 64-deep "
+              "chunks, 3 stages f32 x f32, 4 mixed, 6 bf16 x bf16")
 EB_ORACLE_TOL = 2e-5 * 5
 # MIND (configs/mind.py): item table 2^23 x 64 f32, hist_len 50; batches
 MIND_ITEMS, MIND_DIM, MIND_HIST = 1 << 23, 64, 50
@@ -986,42 +1137,56 @@ def flash_case(torch, fk, fref, name, bh, s, d, window, gen, sampled=False, caus
     return row
 
 
-def tc_kernel_report(build):
-    """The bf16 flash kernel's instantiations: registers, spills and static
-    shared memory from ``-Xptxas -v`` (beside the dynamic bytes each launch
-    asks for), and, where the toolkit has ``cuobjdump``, the ``HMMA``
-    instructions in each one's SASS.  Fails on a spill or on no HMMA."""
-    info = {name: v for name, v in build.ptxas_info("flash_attention").items()
-            if "flash_tc_kernel" in name}
-    check(len(info) == 8, f"flash_tc_kernel: {len(info)} instantiations in the ptxas log")
+def sass_hmma(build, stem):
+    """{kernel: count of HMMA (tensor-core) instructions} in the SASS of
+    ``stem``'s library, or None where the toolkit has no ``cuobjdump``."""
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    hmma = None
-    if cuobjdump.exists():
-        sass = sh([str(cuobjdump), "-sass", str(build.build_all()["flash_attention"])])
-        hmma, name = {}, None
-        for line in sass.splitlines():
-            if "Function : " in line:
-                name = line.split("Function : ", 1)[1].strip()
-                hmma[name] = 0
-            elif name and "HMMA" in line:
-                hmma[name] += 1
+    if not cuobjdump.exists():
+        return None
+    hmma, name = {}, None
+    for line in sh([str(cuobjdump), "-sass", str(build.build_all()[stem])]).splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            hmma[name] = 0
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    return hmma
+
+
+def tc_kernel_report(build):
+    """The tensor-core kernels' instantiations — the bf16 flash kernel's
+    eight and spmm_kernel's four — registers, spills and static shared
+    memory from ``-Xptxas -v`` (beside the dynamic bytes of a flash
+    launch), and, where the toolkit has ``cuobjdump``, the ``HMMA``
+    instructions in each one's SASS.  Fails on a spill or on no HMMA."""
     lib = build.load("flash_attention")
-    for name, v in sorted(info.items()):
-        nk = int(name.split("flash_tc_kernelILi", 1)[1].split("E", 1)[0])
-        dyn = lib.flash_attention_tc_smem_bytes(16 * nk)
-        n_hmma = None if hmma is None else hmma.get(name, 0)
-        print(f"  flash_tc_kernel<DP={16 * nk}>: registers {v.get('registers')} spill "
-              f"stores {v.get('spill_stores')} loads {v.get('spill_loads')} stack "
-              f"{v.get('stack')} static smem {v.get('smem')} B dynamic smem {dyn} B; HMMA "
-              f"in SASS {'no cuobjdump' if n_hmma is None else n_hmma}", flush=True)
-        check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
-              f"flash_tc_kernel<DP={16 * nk}> spills: {v}")
-        check(n_hmma is None or n_hmma > 0, f"flash_tc_kernel<DP={16 * nk}>: no HMMA in SASS")
+    for stem, frag, count in (("flash_attention", "flash_tc_kernel", 8),
+                              ("spmm_bsr", "spmm_kernel", 4)):
+        info = {name: v for name, v in build.ptxas_info(stem).items() if frag in name}
+        check(len(info) == count, f"{frag}: {len(info)} instantiations in the ptxas log")
+        hmma = sass_hmma(build, stem)
+        for name, v in sorted(info.items()):
+            if frag == "flash_tc_kernel":
+                nk = int(name.split("flash_tc_kernelILi", 1)[1].split("E", 1)[0])
+                label = f"flash_tc_kernel<DP={16 * nk}>"
+                dyn = f" dynamic smem {lib.flash_attention_tc_smem_bytes(16 * nk)} B"
+            else:
+                label, dyn = f"spmm_kernel {name}", ""
+            n_hmma = None if hmma is None else hmma.get(name, 0)
+            print(f"  {label}: registers {v.get('registers')} spill stores "
+                  f"{v.get('spill_stores')} loads {v.get('spill_loads')} stack "
+                  f"{v.get('stack')} static smem {v.get('smem')} B{dyn}; HMMA in SASS "
+                  f"{'no cuobjdump' if n_hmma is None else n_hmma}", flush=True)
+            check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
+                  f"{label} spills: {v}")
+            check(n_hmma is None or n_hmma > 0, f"{label}: no HMMA in SASS")
 
 
 def spmm_case(torch, np, gen_mod, sk, sref, gen):
     """``web_crawl_like(16, 13, 16, 3)`` as block-ELL (the port's to_bsr),
-    F = 128, f32: the kernel against the plain version and the edge list."""
+    F = 128: f32 against the plain version and the edge list, then bf16 x
+    bf16 and both mixed dtypes against the plain version.  Returns the
+    rows, f32 first."""
     t0 = time.perf_counter()
     src, dst, n = gen_mod.web_crawl_like(16, 13, 16, 3, seed=0)
     w = gen_mod.random_weights(len(src), seed=1)
@@ -1051,6 +1216,7 @@ def spmm_case(torch, np, gen_mod, sk, sref, gen):
     check(bool((coo_err <= SPMM_COO_TOL + SPMM_COO_TOL * coo.abs()).all()),
           f"spmm_bsr: outside {SPMM_COO_TOL} of the edge list (max err {float(coo_err.max())})")
     nnzb = int((idx >= 0).sum())
+    flops = nnzb * 2 * bm * bk * f
     row = dict(case=f"web_crawl_like(16, 13, 16, 3) F={f} f32", n=n, edges=len(src),
                nnz_blocks=nnzb, K=K, to_bsr_host_s=t_host, max_abs_err=float(err.max()),
                max_abs_err_edge_list=float(coo_err.max()),
@@ -1068,10 +1234,54 @@ def spmm_case(torch, np, gen_mod, sk, sref, gen):
                                       size=(R * bm, x.shape[0]))
         row["library_ms"] = cuda_ms(torch, lambda: bsr @ x)
         lib_err = float((bsr @ x - got).abs().max())
-    nbytes = idx.numel() * 4 + nnzb * bm * bk * 4 + x.numel() * 4 + R * bm * f * 4
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nnzb * 2 * bm * bk * f)
-    row.update(flops=nnzb * 2 * bm * bk * f, library_max_abs_diff=lib_err)
-    return row
+    del bsr
+
+    def nbytes(a_size, x_size):
+        return idx.numel() * 4 + nnzb * bm * bk * a_size + x.numel() * x_size + R * bm * f * x_size
+
+    # the split's three TF32 products on the tensor cores; the f32 CUDA-core
+    # bound of the first design beside it
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(4, 4), 3 * flops, H100_TF32_TC_OPS_PER_S)
+    row.update(flops=flops, tc_flops=3 * flops, route=SPMM_ROUTE,
+               bound_rate="TF32 tensor cores 495 TFLOP/s, three products",
+               bound_f32_cuda_cores_ms=bound_ms(nbytes(4, 4), flops)[0],
+               library_max_abs_diff=lib_err)
+    rows = [row]
+    for a_name, x_name, passes, rate in SPMM_DTYPES:
+        a_t = blocks.to(getattr(torch, a_name))
+        x_t = x.to(getattr(torch, x_name))
+        before = sk.spmm_bsr.launches
+        got = sk.spmm_bsr(idx, a_t, x_t)
+        torch.cuda.synchronize()
+        check(sk.spmm_bsr.launches == before + 1, f"spmm_bsr {a_name} x {x_name}: no launch")
+        want = sref.spmm_bsr_plain(idx, a_t, x_t)
+        err = (got.float() - want.float()).abs()
+        bf16_out = x_t.dtype == torch.bfloat16   # out takes x's dtype
+        tol = SPMM_BF16_TOL if bf16_out else SPMM_TOL
+        limit = tol + tol * want.float().abs()
+        past = int((err > limit).sum())
+        if bf16_out:   # one bf16 ulp of the row's largest sum
+            reach = sref.spmm_bsr_plain(idx, a_t.abs(), x_t.float().abs())
+            limit = limit + torch.exp2(torch.floor(torch.log2(reach.clamp_min(1e-30))) - 7)
+            del reach
+        check(got.dtype == want.dtype and bool(torch.isfinite(got).all()) and bool(
+            (err <= limit).all()),
+            f"spmm_bsr {a_name} x {x_name}: outside {tol}" + (
+                " (+ one bf16 ulp of the row's largest sum)" if bf16_out else "") +
+            f" of the plain version (max err {float(err.max())})")
+        r = dict(case=f"web_crawl_like(16, 13, 16, 3) F={f} blocks {a_name} x {x_name}",
+                 max_abs_err=float(err.max()), compare=f"plain version atol = rtol = "
+                 f"{tol}" + (" + one bf16 ulp of the row's largest sum" if bf16_out else ""),
+                 outputs_past_atol_rtol=past, tc_flops=passes * flops)
+        del limit
+        r["ms"] = cuda_ms(torch, lambda: sk.spmm_bsr(idx, a_t, x_t))
+        r["plain_ms"] = cuda_ms(torch, lambda: sref.spmm_bsr_plain(idx, a_t, x_t))
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes(a_t.element_size(), x_t.element_size()),
+                                                passes * flops, rate)
+        rows.append(r)
+        del a_t, x_t, got, want, err
+    return rows
 
 
 def embedding_bag_cases(torch, ek, eops, eref, gen):
@@ -1361,12 +1571,18 @@ def main() -> int:
           f"(generate {t_gen})", flush=True)
     t0 = time.perf_counter()
     inter_rows = []
-    for case in intersect_cases(torch, tri, gsym, kgsym):
-        row = run_intersect_case(torch, gk, *case)
-        inter_rows.append(row)
+    for label, og in (("web", gsym), ("kron", kgsym)):
+        oriented = oriented_chunks(torch, tri, og)
+        print(f"  oriented {label}: ne={oriented[5]} dmax={oriented[0].shape[1]} "
+              f"chunks={oriented[1].shape[0] // INTERSECT_CHUNK}", flush=True)
+        for case in intersect_cases(torch, label, og, *oriented):
+            row = run_intersect_case(torch, gk, *case)
+            inter_rows.append(row)
+            print("  intersect " + json.dumps(row), flush=True)
+        row = intersect_whole_list(torch, gk, label, *oriented[:4], og.sentinel)
         print("  intersect " + json.dumps(row), flush=True)
-    del case  # it holds an oriented adjacency on the card
-    torch.cuda.empty_cache()
+        del case, oriented  # they hold an oriented adjacency on the card
+        torch.cuda.empty_cache()
     print(f"intersect cases: {time.perf_counter() - t0} s (two oriented "
           f"adjacencies built on the host)", flush=True)
 
@@ -1417,8 +1633,9 @@ def main() -> int:
     for row in flash_rows:
         print("  flash_attention " + json.dumps(row), flush=True)
     torch.cuda.empty_cache()
-    spmm_row = spmm_case(torch, np, gen_mod, sk, sref, rng)
-    print("  spmm_bsr " + json.dumps(spmm_row), flush=True)
+    spmm_rows = spmm_case(torch, np, gen_mod, sk, sref, rng)
+    for row in spmm_rows:
+        print("  spmm_bsr " + json.dumps(row), flush=True)
     torch.cuda.empty_cache()
     eb_rows = embedding_bag_cases(torch, ek, eops, eref, rng)
     for row in eb_rows:
@@ -1461,8 +1678,8 @@ def main() -> int:
               flash_rows[0]),
         entry("spmm_bsr", "src/repro_torch/kernels/spmm_bsr/csrc/spmm_bsr.cu",
               "src/repro/kernels/spmm_bsr/spmm_bsr.py:29",
-              max(spmm_row["max_abs_err"], bench_errs["spmm_bsr"]),
-              spmm_row),
+              max([r["max_abs_err"] for r in spmm_rows] + [bench_errs["spmm_bsr"]]),
+              spmm_rows[0]),
         entry("embedding_bag",
               "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
               "src/repro/kernels/embedding_bag/embedding_bag.py:25",

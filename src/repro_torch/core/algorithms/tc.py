@@ -54,9 +54,11 @@ def oriented_adjacency(g: Graph):
 def tc_count(g: Graph, edge_chunk: int = 32_768):
     """Total triangle count.  Returns (count, stats).
 
-    ``edge_chunk`` bounds the (chunk, dmax) working set of each intersect
-    call.  The per-chunk counts are summed on the device in int64 and
-    fetched once."""
+    ``edge_chunk`` bounds the (chunk, dmax) working set of the plain
+    version's gathers, which go chunk by chunk; the kernel takes the whole
+    list in one launch (or a few, to keep its candidate indices in int32)
+    and writes one count per chunk.  The per-chunk counts are summed on the
+    device in int64 and fetched once."""
     if not isinstance(g, Graph):
         raise NotImplementedError(
             "tc on sharded graphs is not ported yet "
@@ -70,11 +72,9 @@ def tc_count(g: Graph, edge_chunk: int = 32_768):
     osrc = torch.cat([osrc, pad])
     odst = torch.cat([odst, pad])
 
-    total = torch.zeros((), dtype=torch.int64, device=g.device)
-    for c in range(0, ne_pad, edge_chunk):
-        total += ops.intersect_batch(adj, osrc[c:c + edge_chunk],
-                                     odst[c:c + edge_chunk],
-                                     sentinel=g.sentinel)
+    counts = ops.intersect_batch(adj, osrc, odst, sentinel=g.sentinel,
+                                 chunk=edge_chunk)
+    total = counts.sum(dtype=torch.int64)
     stats = RunStats.from_graph(g, rounds=max(ne_pad // edge_chunk, 1),
                                 edges_touched=int(ne_pad) * dmax)
     return int(total), stats

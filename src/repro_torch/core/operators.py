@@ -257,17 +257,22 @@ def intersect_batch(
     *,
     sentinel: int,
     substrate: str | None = None,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Oriented sorted-intersection count for a batch of oriented edges —
     triangle counting's operator.  ``adj`` is the (n_pad, dmax) sorted
     oriented adjacency (sentinel-padded rows, ``adj[sentinel]`` all
     sentinel), ``src``/``dst`` the oriented endpoints (sentinel on padding
     slots).  Returns the exact int32 sum of |N+(src_i) ∩ N+(dst_i)| as a
-    0-d tensor on the device, bitwise equal across substrates."""
+    0-d tensor on the device, bitwise equal across substrates; with
+    ``chunk``, the (ceil(e / chunk),) int32 sums of each slice of ``chunk``
+    edges."""
     sub = _resolve(substrate)
     if sub == "cuda":
-        return gk.intersect_count(adj, src, dst, sentinel=sentinel)
-    return gk.intersect_ref(adj, src, dst, sentinel)
+        return gk.intersect_count(adj, src, dst, sentinel=sentinel, chunk=chunk)
+    if chunk is None:
+        return gk.intersect_ref(adj, src, dst, sentinel)
+    return gk.intersect_chunks_ref(adj, src, dst, sentinel, chunk)
 
 
 def sparse_round(

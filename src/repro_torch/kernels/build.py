@@ -52,7 +52,10 @@ SIGNATURES = {
         "graph_ops_advance": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _P, _P, _P, _P, _P, _P, _P, _P], _I),
-        "graph_ops_intersect": ([_P, _I, _I, _P, _P, _LL, _I, _P, _P], _I),
+        # adj, n_rows, dmax, src, dst, row_len, e, chunk, scratch, partial,
+        # nch, stream
+        "graph_ops_intersect": ([_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P], _I),
+        "graph_ops_intersect_scratch": ([_LL, _I], _LL),   # e, dmax
     },
     "embedding_bag": {
         # ids, weights, table, out, B, L, V, D, table dtype, vector bytes, stream

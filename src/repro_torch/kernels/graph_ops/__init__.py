@@ -15,6 +15,7 @@ from .ref import (  # noqa: F401
     det_relax_ref,
     det_scatter_add,
     edge_message,
+    intersect_chunks_ref,
     intersect_ref,
     neutral_for,
     pull_ref,

@@ -132,32 +132,59 @@
 //   adjacency: each row sorted ascending, real ids first, the rest the
 //   sentinel (n_rows - 1, which sorts last; adj[sentinel] is all
 //   sentinel).  For each oriented edge i it counts the entries w of
-//   adj[src[i]] with w != sentinel that occur in adj[dst[i]], and adds the
-//   int32 total over the batch into *count (zeroed by the wrapper).  Any
-//   correct membership test gives the reference's integer, so the result
-//   is bitwise equal to ref.intersect_ref.
+//   adj[src[i]] with w != sentinel that occur in adj[dst[i]], and adds
+//   them into the int32 partial of edge i's chunk.  Any correct
+//   membership test gives the reference's integer, so the result is
+//   bitwise equal to ref.intersect_ref.
 //
 //   Bound: device-memory bytes — src and dst once (8 B an edge) plus each
 //   adjacency row the batch touches, real entries only, 4 B each.  The
-//   operations (one compare per probe) are far below the card's rate, but
-//   the probes are dependent loads: each candidate takes about
-//   log2(len_d) + 1 serial reads of the target row, so a warp waits on
-//   latency unless many warps are in flight.
+//   operations (one compare per probe) are far below the card's rate; what
+//   costs is latency: a membership test is a chain of dependent loads.
 //
 //   Design: the TPU kernel held all of adj in VMEM and carried the scalar
-//   across its sequential grid.  Here adj stays in device memory and each
-//   edge gathers its two rows: one warp per oriented edge (grid-stride
-//   over warps).  The warp first finds the target row's real length with
-//   coalesced 32-wide loads and a ballot for the first sentinel (a padded
-//   edge, src == dst == sentinel, finds 0 and costs one load).  The lanes
-//   then stride over the candidate row, stop at its first sentinel, and
-//   binary-search the target row's real prefix; the probed row is a few
-//   hundred bytes and stays in L1.  Each lane keeps its count across all
-//   of its warp's edges; one shuffle reduction and one atomicAdd per warp
-//   at the end.  Row indices outside [0, n_rows) contribute 0 (the
-//   reference's gather clamps them to the all-sentinel last row).  The
-//   oriented degree bounds every row by dmax, so one warp per edge is
-//   balanced enough; merge-path balancing of skewed rows is later work.
+//   across its sequential grid.  A first port gave each edge one warp,
+//   which left most lanes idle (the web graph's oriented rows average 12.5)
+//   and chained every probe to device memory.  Here the work is the
+//   candidates (edge i, j < row_len[src[i]]), spread evenly over threads:
+//     * intersect_scan: advance_scan's single pass (scan_tiles) over the
+//       candidate mass row_len[src[i]] of each edge (0 when an endpoint is
+//       not a row of adj, as for the padding edges, whose row is the
+//       sentinel's: empty).  row_len comes from the wrapper (one pass over
+//       adj a call; tc_count makes one call), so no warp looks for a row's
+//       first sentinel.  The scan
+//       also writes each edge's target-row length (tlen), records, for
+//       every tile of kITile = 2,048 candidates, the edge that holds its
+//       first (tile_k), and zeroes the partial counts.
+//     * intersect_count: one resident wave of blocks strides over the
+//       tiles.  A tile's edges are tile_k[t] .. tile_k[t + 1] (every real
+//       edge holds a candidate, so at most 2,049); up to kIEdges = 1,024 of
+//       them are staged in shared memory with a block scan of their tlen,
+//       and those rows are copied in, warp by warp with neighbouring lanes
+//       on neighbouring entries, until kIRows = 6,144 entries are full.  A
+//       warp takes 256 consecutive candidates, each lane 8 of them 32
+//       apart, so neighbouring lanes load neighbouring entries of a source
+//       row and, on a long row, bisect the same target row.  A lane finds
+//       its first candidate's edge by bisecting the staged scan and loads
+//       its 8 candidates before the rows are copied, so both loads share
+//       one wait; then it bisects each candidate's row, in the stage or,
+//       for a row past it (or a tile of more than kIEdges edges), in
+//       device memory.  A block reads its next tile's tile_k during this
+//       one.  Each of these steps removed a dependent round of
+//       device-memory loads from a tile (PERF.md §6).  Measured and not
+//       built: a thread taking 8 consecutive candidates, each bisected from
+//       where the last of the same edge ended (5-11% slower on the whole
+//       web and kron lists), a lockstep (fixed-trip) bisection, and a
+//       forward merge of a thread's candidates through their rows.
+//     * The launch covers many chunks of tc_count's edge list: every
+//       ``chunk`` edges own one int32 partial.  A warp adds its tile's hits
+//       into the partial of the tile's first edge with one atomic; a hit
+//       in an edge of a later chunk goes to that chunk's partial alone.
+//       Integer sums in any order are exact, so each partial, and the
+//       total, is bitwise the plain version's.
+//   Row indices outside [0, n_rows) contribute 0 (the reference's gather
+//   clamps them to the all-sentinel last row).  The wrapper keeps
+//   e * dmax below 2^31, so every candidate index is an int32.
 // ---------------------------------------------------------------------------
 
 #include <cfloat>
@@ -765,14 +792,17 @@ __global__ void __launch_bounds__(kRelaxThreads)
   if (__any_sync(kFull, any) && (threadIdx.x & 31) == 0) *beyond = 1;
 }
 
+constexpr int kDevices = 64;  // devices whose SM count is kept
+
+// the current device's SM count, looked up once per device
 int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
+  static int by_dev[kDevices] = {};
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kDevices && by_dev[dev] > 0) return by_dev[dev];
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (n <= 0) n = 132;
+  if (dev >= 0 && dev < kDevices) by_dev[dev] = n;
   return n;
 }
 
@@ -882,13 +912,16 @@ __device__ __forceinline__ int warp_sum(int x) {
   return x;
 }
 
-// One pass: cum = inclusive scan of out_deg[f_idx[i]] over i < live, by
+// One pass: cum = inclusive scan of the entries' masses over i < live, by
 // tiles in ticket order with decoupled look-back; the last live tile
-// writes total (tile 0 writes 0 when live is 0).
-__global__ void __launch_bounds__(kScanThreads)
-    advance_scan(const int* __restrict__ f_idx, const int* __restrict__ f_count,
-                 const int* __restrict__ out_deg, int cap, bool aligned, int* __restrict__ cum,
-                 unsigned long long* status, unsigned int* ticket, int* __restrict__ total) {
+// writes total (tile 0 writes 0 when live is 0).  ``mass.load`` reads a
+// thread's kScanItems consecutive masses (0 at or past live; ``vec``: the
+// run is whole and 16-B aligned); ``mass.emit`` sees each entry's inclusive
+// prefix after the scan.
+template <class Mass>
+__device__ __forceinline__ void scan_tiles(const Mass& mass, int live, bool aligned,
+                                           int* __restrict__ cum, unsigned long long* status,
+                                           unsigned int* ticket, int* __restrict__ total) {
   __shared__ int tile_s;
   __shared__ int excl_s;
   __shared__ int warp_sums[kScanThreads / 32];
@@ -897,7 +930,6 @@ __global__ void __launch_bounds__(kScanThreads)
   if (threadIdx.x == 0) tile_s = static_cast<int>(atomicAdd(ticket, 1u));
   __syncthreads();
   const int t = tile_s;
-  const int live = min(*f_count, cap);
   const long long base = static_cast<long long>(t) * kScanTile;
   if (base >= live) {
     if (t == 0 && threadIdx.x == 0) *total = 0;
@@ -906,17 +938,7 @@ __global__ void __launch_bounds__(kScanThreads)
   const int i0 = static_cast<int>(base) + threadIdx.x * kScanItems;
   const bool vec = aligned && i0 + kScanItems <= live;
   int x[kScanItems];
-  if (vec) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(f_idx + i0));
-    const int4 b = __ldg(reinterpret_cast<const int4*>(f_idx + i0 + 4));
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k) x[k] = i0 + k < live ? __ldg(f_idx + i0 + k) : -1;
-  }
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) x[k] = x[k] >= 0 && i0 + k < live ? __ldg(out_deg + x[k]) : 0;
+  mass.load(i0, live, vec, x);
 #pragma unroll
   for (int k = 1; k < kScanItems; ++k) x[k] += x[k - 1];
   const int mine = x[kScanItems - 1];
@@ -954,17 +976,51 @@ __global__ void __launch_bounds__(kScanThreads)
   }
   __syncthreads();
   const int off = excl_s + before + incl - mine;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) x[k] += off;
   if (vec) {
-    *reinterpret_cast<int4*>(cum + i0) = make_int4(off + x[0], off + x[1], off + x[2], off + x[3]);
-    *reinterpret_cast<int4*>(cum + i0 + 4) =
-        make_int4(off + x[4], off + x[5], off + x[6], off + x[7]);
+    *reinterpret_cast<int4*>(cum + i0) = make_int4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<int4*>(cum + i0 + 4) = make_int4(x[4], x[5], x[6], x[7]);
   } else {
 #pragma unroll
     for (int k = 0; k < kScanItems; ++k) {
-      if (i0 + k < live) cum[i0 + k] = off + x[k];
+      if (i0 + k < live) cum[i0 + k] = x[k];
     }
   }
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    if (i0 + k < live) mass.emit(i0 + k, k > 0 ? x[k - 1] : off, x[k]);
+  }
   if (base + kScanTile >= live && threadIdx.x == 0) *total = excl_s + agg;
+}
+
+// advance's masses: out_deg[f_idx[i]]
+struct AdvanceMass {
+  const int* __restrict__ f_idx;
+  const int* __restrict__ out_deg;
+  __device__ __forceinline__ void load(int i0, int live, bool vec, int (&x)[kScanItems]) const {
+    if (vec) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(f_idx + i0));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(f_idx + i0 + 4));
+      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+      x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kScanItems; ++k) x[k] = i0 + k < live ? __ldg(f_idx + i0 + k) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k)
+      x[k] = x[k] >= 0 && i0 + k < live ? __ldg(out_deg + x[k]) : 0;
+  }
+  __device__ __forceinline__ void emit(int, int, int) const {}
+};
+
+__global__ void __launch_bounds__(kScanThreads)
+    advance_scan(const int* __restrict__ f_idx, const int* __restrict__ f_count,
+                 const int* __restrict__ out_deg, int cap, bool aligned, int* __restrict__ cum,
+                 unsigned long long* status, unsigned int* ticket, int* __restrict__ total) {
+  scan_tiles(AdvanceMass{f_idx, out_deg}, min(*f_count, cap), aligned, cum, status, ticket,
+             total);
 }
 
 // The warp's upper bound of key in cum[0, n): the first index whose value
@@ -1107,56 +1163,312 @@ __global__ void __launch_bounds__(kExpandThreads)
 
 // ---- intersect ------------------------------------------------------------
 
-constexpr int kIntersectThreads = 256;
+constexpr int kIThreads = 256;
+constexpr int kIItems = 8;                      // consecutive candidates a thread takes
+constexpr int kITile = kIThreads * kIItems;     // candidates a block takes at a time
+constexpr int kIEdges = 1024;                   // edges a block stages
+constexpr int kIRows = 6144;                    // target-row entries a block stages
+constexpr int kCopy = 8;                        // row entries a lane loads at once
 
-__global__ void intersect_kernel(const int* __restrict__ adj, int n_rows, int dmax,
-                                 const int* __restrict__ src, const int* __restrict__ dst,
-                                 long long e, int sentinel, int* count) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long nwarps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  int hits = 0;
-  for (long long i = warp; i < e; i += nwarps) {
-    const int s = src[i];
-    const int d = dst[i];
-    if (s < 0 || s >= n_rows || d < 0 || d >= n_rows) continue;  // warp-uniform
-    const int* rs = adj + static_cast<long long>(s) * dmax;
-    const int* rd = adj + static_cast<long long>(d) * dmax;
-    // real length of the target row: index of its first sentinel
-    int len_d = dmax;
-    for (int base = 0; base < dmax; base += 32) {
-      const int j = base + lane;
-      const unsigned at_end = __ballot_sync(full, j < dmax && rd[j] == sentinel);
-      if (at_end) {
-        len_d = base + __ffs(at_end) - 1;
-        break;
+// intersect's masses: the source row's real length of each oriented edge
+// whose endpoints are rows of adj (0 otherwise), with its target row's
+// length beside it in tlen; emit records, for every tile of kITile
+// candidates, the edge that holds its first candidate.
+struct IntersectMass {
+  const int* __restrict__ src;
+  const int* __restrict__ dst;
+  const int* __restrict__ row_len;
+  int n_rows;
+  int* __restrict__ tile_k;
+  int* __restrict__ tlen;  // each edge's target-row length (0 without candidates)
+  __device__ __forceinline__ void load(int i0, int live, bool vec, int (&x)[kScanItems]) const {
+    int s[kScanItems], d[kScanItems];
+    if (vec) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(src + i0));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(src + i0 + 4));
+      const int4 c = __ldg(reinterpret_cast<const int4*>(dst + i0));
+      const int4 e = __ldg(reinterpret_cast<const int4*>(dst + i0 + 4));
+      s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w; s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+      d[0] = c.x; d[1] = c.y; d[2] = c.z; d[3] = c.w; d[4] = e.x; d[5] = e.y; d[6] = e.z; d[7] = e.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kScanItems; ++k) {
+        s[k] = i0 + k < live ? __ldg(src + i0 + k) : -1;
+        d[k] = i0 + k < live ? __ldg(dst + i0 + k) : -1;
       }
     }
-    if (len_d == 0) continue;
-    // candidates: the lanes stride over the source row up to its first sentinel
-    for (int base = 0; base < dmax; base += 32) {
-      const int j = base + lane;
-      const int w = j < dmax ? rs[j] : sentinel;
-      const bool live = w != sentinel;
-      if (live) {
-        int lo = 0, hi = len_d;  // lower bound of w in rd[0, len_d)
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (rd[mid] < w) {
-            lo = mid + 1;
-          } else {
-            hi = mid;
-          }
-        }
-        hits += (lo < len_d && rd[lo] == w) ? 1 : 0;
-      }
-      if (__ballot_sync(full, !live)) break;
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      const bool ok = i0 + k < live && static_cast<unsigned>(s[k]) < static_cast<unsigned>(n_rows) &&
+                      static_cast<unsigned>(d[k]) < static_cast<unsigned>(n_rows);
+      x[k] = ok ? __ldg(row_len + s[k]) : 0;
+      if (i0 + k < live) tlen[i0 + k] = ok ? __ldg(row_len + d[k]) : 0;
     }
   }
+  __device__ __forceinline__ void emit(int i, int before, int incl) const {
+    for (long long t = (static_cast<long long>(before) + kITile - 1) / kITile; t * kITile < incl;
+         ++t)
+      tile_k[t] = i;
+  }
+};
+
+// cum, tlen and tile_k of a launch's edges; also zeroes the nch partial counts
+__global__ void __launch_bounds__(kScanThreads)
+    intersect_scan(const int* __restrict__ src, const int* __restrict__ dst,
+                   const int* __restrict__ row_len, int n_rows, int e, bool aligned,
+                   int* __restrict__ cum, unsigned long long* status, unsigned int* ticket,
+                   int* __restrict__ total, int* __restrict__ tile_k, int* __restrict__ tlen,
+                   int* __restrict__ partial, int nch) {
+  for (int p = blockIdx.x * kScanThreads + threadIdx.x; p < nch; p += gridDim.x * kScanThreads)
+    partial[p] = 0;
+  scan_tiles(IntersectMass{src, dst, row_len, n_rows, tile_k, tlen}, e, aligned, cum, status,
+             ticket, total);
+}
+
+// A lane's candidates c = cw + 32 i (i < kIItems, c < c_end) of a tile
+// whose edges are k0 .. k0 + nk - 1 (tile-local k; prev0 is cum before
+// edge k0): a warp takes 32 * kIItems consecutive candidates, so
+// neighbouring lanes load neighbouring entries of a source row and, on a
+// long row, bisect the same target row.  kStaged: the tile's cum, src, dst
+// and row offsets are in shared memory, and rows that end at or before
+// ``fit`` are staged in s_rows; else every read goes to device memory.
+// resolve_lane finds each candidate's edge (kk, -1 past the tile) and
+// loads it; probe_lane bisects each candidate's target row and returns the
+// hits in edges below ``boundary``, adding the others to their own
+// chunk's partial.
+struct Run {
+  const int* __restrict__ adj;
+  int dmax;
+  const int* __restrict__ src;
+  const int* __restrict__ dst;
+  const int* __restrict__ cum;
+  const int* __restrict__ tlen;
+  int k0, nk, prev0;
+  const int* s_cum;
+  const int* s_src;
+  const int* s_dst;
+  const int* s_off;
+  const int* s_rows;
+};
+
+template <bool kStaged>
+__device__ __forceinline__ int cum_at(const Run& r, int k) {
+  return kStaged ? r.s_cum[k] : __ldg(r.cum + r.k0 + k);
+}
+
+template <bool kStaged>
+__device__ __forceinline__ void resolve_lane(const Run& r, int cw, int c_end, int (&w)[kIItems],
+                                             int (&kk)[kIItems]) {
+  int lo = 0, hi = r.nk - 1;  // the edge that holds cw: upper bound of cw in cum
+  while (cw < c_end && lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cum_at<kStaged>(r, mid) <= cw) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int k = lo;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) hits += __shfl_down_sync(full, hits, o);
-  if (lane == 0 && hits != 0) atomicAdd(count, hits);
+  for (int i = 0; i < kIItems; ++i) {
+    const int c = cw + 32 * i;
+    w[i] = 0;
+    kk[i] = -1;
+    if (c < c_end) {
+      while (cum_at<kStaged>(r, k) <= c) ++k;
+      const int prev = k > 0 ? cum_at<kStaged>(r, k - 1) : r.prev0;
+      const int s = kStaged ? r.s_src[k] : __ldg(r.src + r.k0 + k);
+      w[i] = __ldg(r.adj + static_cast<long long>(s) * r.dmax + (c - prev));
+      kk[i] = k;
+    }
+  }
+}
+
+template <bool kGlobal>
+__device__ __forceinline__ int lower_bound_in(const int* row, int len, int w) {
+  int pos = 0, hi = len;
+  while (pos < hi) {
+    const int mid = (pos + hi) >> 1;
+    const int v = kGlobal ? __ldg(row + mid) : row[mid];
+    if (v < w) {
+      pos = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return pos;
+}
+
+template <bool kStaged>
+__device__ __forceinline__ int probe_lane(const Run& r, int fit, const int (&w)[kIItems],
+                                          const int (&kk)[kIItems], long long boundary,
+                                          int chunk, int* partial) {
+  int hits = 0;
+#pragma unroll
+  for (int i = 0; i < kIItems; ++i) {
+    const int k = kk[i];
+    if (k < 0) break;  // the lane's later candidates lie past the tile too
+    bool hit;
+    if (kStaged && r.s_off[k + 1] <= fit) {
+      const int off = r.s_off[k];
+      const int len = r.s_off[k + 1] - off;
+      const int pos = lower_bound_in<false>(r.s_rows + off, len, w[i]);
+      hit = pos < len && r.s_rows[off + pos] == w[i];
+    } else {
+      const int d = kStaged ? r.s_dst[k] : __ldg(r.dst + r.k0 + k);
+      const int len = __ldg(r.tlen + r.k0 + k);
+      const int* grow = r.adj + static_cast<long long>(d) * r.dmax;
+      const int pos = lower_bound_in<true>(grow, len, w[i]);
+      hit = pos < len && __ldg(grow + pos) == w[i];
+    }
+    if (hit) {
+      if (r.k0 + k < boundary) {
+        ++hits;
+      } else {
+        atomicAdd(partial + (r.k0 + k) / chunk, 1);
+      }
+    }
+  }
+  return hits;
+}
+
+// Blocks take tiles of kITile consecutive candidates (blockIdx.x, then
+// every gridDim.x-th); a tile's edges run from tile_k[t] to tile_k[t + 1]
+// (to the edge of the last candidate for the last tile).  A block reads
+// the next tile's tile_k while it works on this one, and issues its
+// candidates' loads before it copies the target rows, so that a tile waits
+// on three rounds of device memory: its edges, then the rows and the
+// candidates together, then what probes miss the stage.
+__global__ void __launch_bounds__(kIThreads)
+    intersect_count(const int* __restrict__ adj, int dmax, const int* __restrict__ src,
+                    const int* __restrict__ dst, const int* __restrict__ tlen, int e,
+                    const int* __restrict__ cum, const int* __restrict__ total_p,
+                    const int* __restrict__ tile_k, int chunk, int* __restrict__ partial) {
+  __shared__ int s_cum[kIEdges];
+  __shared__ int s_src[kIEdges];
+  __shared__ int s_dst[kIEdges];
+  __shared__ int s_off[kIEdges + 1];
+  __shared__ int s_rows[kIRows];
+  __shared__ int s_warp[kIThreads / 32];
+  __shared__ int s_last;
+  __shared__ int s_fit;
+  constexpr int kWarps = kIThreads / 32;
+  constexpr int kPer = kIEdges / kIThreads;  // edges a thread stages
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int total = *total_p;
+  const int ntiles = static_cast<int>((static_cast<long long>(total) + kITile - 1) / kITile);
+  const int t0 = static_cast<int>(blockIdx.x);
+  int next0 = t0 < ntiles ? __ldg(tile_k + t0) : 0;
+  int next1 = t0 + 1 < ntiles ? __ldg(tile_k + t0 + 1) : 0;
+  for (int t = t0; t < ntiles; t += gridDim.x) {
+    const int c0 = t * kITile;
+    const int c_end = c0 + min(total - c0, kITile);
+    const int k0 = next0;
+    int k1 = next1;
+    const int tn = t + gridDim.x;  // this block's next tile
+    if (tn < ntiles) next0 = __ldg(tile_k + tn);
+    if (tn + 1 < ntiles) next1 = __ldg(tile_k + tn + 1);
+    if (t + 1 >= ntiles) {  // the last tile: the edge of the last candidate
+      if (wid == 0) {
+        const int k = k0 + warp_upper_bound(cum + k0, e - k0, total - 1);
+        if (lane == 0) s_last = k;
+      }
+      __syncthreads();
+      k1 = s_last;
+    }
+    const int nk = k1 - k0 + 1;
+    const int prev0 = k0 > 0 ? __ldg(cum + k0 - 1) : 0;
+    const long long boundary = (static_cast<long long>(k0) / chunk + 1) * chunk;
+    const int cw = c0 + wid * (32 * kIItems) + lane;  // this lane's first candidate
+    Run r{adj, dmax, src, dst, cum, tlen, k0, nk, prev0, s_cum, s_src, s_dst, s_off, s_rows};
+    int w[kIItems], kk[kIItems];
+    int hits;
+    if (nk <= kIEdges) {
+      // stage the tile's edges, kPer consecutive a thread, with a scan of
+      // their target rows' lengths (0 for an edge without candidates)
+      if (threadIdx.x == 0) s_fit = INT_MAX;
+      const int i0 = threadIdx.x * kPer;
+      int ln[kPer];
+      int prev = i0 == 0 ? prev0 : (i0 < nk ? __ldg(cum + k0 + i0 - 1) : 0);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        ln[j] = 0;
+        if (i0 + j < nk) {
+          const int k = k0 + i0 + j;
+          const int c = __ldg(cum + k);
+          s_cum[i0 + j] = c;
+          s_src[i0 + j] = __ldg(src + k);
+          s_dst[i0 + j] = __ldg(dst + k);
+          ln[j] = c > prev ? __ldg(tlen + k) : 0;
+          prev = c;
+        }
+      }
+      int mine = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) mine += ln[j];
+      const int incl = warp_inclusive_scan(mine);
+      if (lane == 31) s_warp[wid] = incl;
+      __syncthreads();
+      // the candidates' loads go out now, and land while the rows copy
+      resolve_lane<true>(r, cw, c_end, w, kk);
+      int off = incl - mine, all = 0;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        off += i < wid ? s_warp[i] : 0;
+        all += s_warp[i];
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (i0 + j < nk) {
+          s_off[i0 + j] = off;
+          if (off <= kIRows && off + ln[j] > kIRows) s_fit = off;  // the first row that overflows
+          off += ln[j];
+        }
+      }
+      if (threadIdx.x == 0) s_off[nk] = all;
+      __syncthreads();
+      // copy the rows that fit: each warp a segment, its lanes side by side,
+      // kCopy loads in flight at a time
+      const int fit = min(s_fit, all);
+      const int seg = (fit + kWarps - 1) / kWarps;
+      const int end = min(fit, (wid + 1) * seg);
+      int idx = wid * seg + lane;
+      if (idx < end) {
+        int lo = 0, hi = nk;  // the last edge whose row starts at or before idx
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (s_off[mid] <= idx) {
+            lo = mid;
+          } else {
+            hi = mid - 1;
+          }
+        }
+        int i = lo;
+        for (; idx < end; idx += 32 * kCopy) {
+          int v[kCopy];
+#pragma unroll
+          for (int j = 0; j < kCopy; ++j) {
+            const int at = min(idx + 32 * j, end - 1);
+            while (s_off[i + 1] <= at) ++i;
+            v[j] = __ldg(adj + static_cast<long long>(s_dst[i]) * dmax + (at - s_off[i]));
+          }
+#pragma unroll
+          for (int j = 0; j < kCopy; ++j) {
+            if (idx + 32 * j < end) s_rows[idx + 32 * j] = v[j];
+          }
+        }
+      }
+      __syncthreads();
+      hits = probe_lane<true>(r, fit, w, kk, boundary, chunk, partial);
+    } else {
+      resolve_lane<false>(r, cw, c_end, w, kk);
+      hits = probe_lane<false>(r, 0, w, kk, boundary, chunk, partial);
+    }
+    hits = warp_sum(hits);
+    if (lane == 0 && hits != 0) atomicAdd(partial + k0 / chunk, hits);
+    __syncthreads();  // the next tile restages
+  }
 }
 
 }  // namespace
@@ -1232,16 +1544,54 @@ int graph_ops_advance(const void* f_idx, const void* f_count, const void* out_de
   return static_cast<int>(cudaGetLastError());
 }
 
+// The int32 scratch of one intersect launch over e edges: the scan's
+// status words and ticket, its total, cum and tlen (e each) and tile_k.
+long long graph_ops_intersect_scratch(long long e, int dmax) {
+  const long long ntiles = (e + kScanTile - 1) / kScanTile;
+  return 2 * (ntiles + 1) + 4 + 2 * ((e + 3) / 4 * 4) + (e * dmax + kITile - 1) / kITile + 1;
+}
+
 // adj: (n_rows, dmax) int32, rows sorted, sentinel-padded; src, dst: (e,)
-// int32, e > 0; count: (1,) int32, zeroed by the caller, receives the sum.
+// int32, 0 < e and e * dmax + kITile < 2^31; row_len: (n_rows,) int32, the
+// rows' real lengths; scratch: graph_ops_intersect_scratch(e, dmax) int32,
+// 16-B aligned; partial: (nch,) int32, nch = ceil(e / chunk), receives the
+// count of each chunk of ``chunk`` edges.
 int graph_ops_intersect(const void* adj, int n_rows, int dmax, const void* src, const void* dst,
-                        long long e, int sentinel, void* count, void* stream) {
-  const long long warps_per_block = kIntersectThreads / 32;
-  const long long want = (e + warps_per_block - 1) / warps_per_block;
-  const int blocks = static_cast<int>(want < kMaxBlocks ? (want > 0 ? want : 1) : kMaxBlocks);
-  intersect_kernel<<<blocks, kIntersectThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(adj), n_rows, dmax, static_cast<const int*>(src),
-      static_cast<const int*>(dst), e, sentinel, static_cast<int*>(count));
+                        const void* row_len, int e, int chunk, void* scratch, void* partial,
+                        int nch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ntiles = (e + kScanTile - 1) / kScanTile;
+  unsigned long long* status = static_cast<unsigned long long*>(scratch);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(status + ntiles);
+  const int head = 2 * (ntiles + 1);  // the status words' int32s
+  int* total = static_cast<int*>(scratch) + head;
+  int* cum = static_cast<int*>(scratch) + (head + 4) / 4 * 4;
+  int* tlen = cum + (e + 3) / 4 * 4;
+  int* tile_k = tlen + (e + 3) / 4 * 4;
+  const int* s = static_cast<const int*>(src);
+  const int* d = static_cast<const int*>(dst);
+  const int* rl = static_cast<const int*>(row_len);
+  const int* a = static_cast<const int*>(adj);
+  int* p = static_cast<int*>(partial);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (ntiles + 1) * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d) |
+                         reinterpret_cast<uintptr_t>(cum)) & 15) == 0;
+  intersect_scan<<<ntiles, kScanThreads, 0, st>>>(s, d, rl, n_rows, e, aligned, cum, status,
+                                                  ticket, total, tile_k, tlen, p, nch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one resident wave, at most one block per tile
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, intersect_count, kIThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int res = per_sm * sm_count();
+  const long long tiles = (static_cast<long long>(e) * dmax + kITile - 1) / kITile;
+  const int blocks = static_cast<int>(tiles < res ? (tiles > 0 ? tiles : 1) : res);
+  intersect_count<<<blocks, kIThreads, 0, st>>>(a, dmax, s, d, tlen, e, cum, total, tile_k,
+                                                 chunk, p);
   return static_cast<int>(cudaGetLastError());
 }
 

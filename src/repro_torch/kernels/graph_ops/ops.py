@@ -10,6 +10,8 @@ the kernel does not take raises.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from .. import build
@@ -55,7 +57,10 @@ def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
     relax).  Returns a new (n_pad,) accumulator seeded from ``out_init``.
     ``case`` names the caller's sweep — ``"push"`` or ``"pull"`` (vertex
     mask), ``"batch"`` or ``"edges"`` (per-slot mask); it picks the
-    kernel's name in a profile, not its code (default: push or edges).
+    layout of a warp's slots (rows of 32 consecutive slots for push, batch
+    and edges; four consecutive slots a lane for pull), the grid (one
+    resident wave, or a block per eight tiles) and the kernel's name in a
+    profile (default: push or edges).
     """
     if src.device.type == "cpu":
         if vertex_mask:
@@ -152,13 +157,45 @@ def advance_frontier(f_idx, f_count, out_deg, row_ptr, col_idx, edge_w, *,
 advance_frontier.launches = 0
 
 
-def intersect_count(adj, src, dst, *, sentinel: int):
+# one launch keeps every candidate index in int32: its edges x dmax stay
+# below this
+INTERSECT_MASS = 2**31 - 2**16
+# the last adjacency's row lengths: [weakref to adj, adj's version,
+# sentinel, lengths]
+_ROW_LEN = [None, -1, -1, None]
+
+
+def row_lengths(adj, sentinel: int):
+    """The real lengths of adj's rows (entries other than the sentinel) as
+    int32, computed by one pass over adj and kept for the next call with
+    the same ``adj`` object while it lives unmodified (its version counter
+    unchanged), so a caller that intersects one adjacency chunk by chunk
+    pays the pass once."""
+    ref_, version, sent, lengths = _ROW_LEN
+    if ref_ is not None and ref_() is adj and (version, sent) == (adj._version, sentinel):
+        return lengths
+    lengths = (adj != sentinel).sum(1, dtype=torch.int32)
+    _ROW_LEN[:] = [weakref.ref(adj), adj._version, sentinel, lengths]
+    return lengths
+
+
+def intersect_count(adj, src, dst, *, sentinel: int, chunk=None):
     """Oriented sorted-intersection count over an edge batch: the int32
     total of |N+(src_i) ∩ N+(dst_i)| as a 0-d tensor on ``adj``'s device.
     ``adj`` is the (n_pad, dmax) sorted, sentinel-padded oriented
-    adjacency with ``sentinel = n_pad - 1``."""
+    adjacency with ``sentinel = n_pad - 1``.  The kernel's candidate
+    counts, the real lengths of adj's rows, come from ``row_lengths``:
+    one pass over each adjacency.
+
+    ``chunk``: return the (ceil(e / chunk),) int32 counts of each slice of
+    ``chunk`` edges instead of the total.  One launch takes as many whole
+    chunks as keep its edges x dmax below ``INTERSECT_MASS``; the plain
+    version goes chunk by chunk."""
+    e = src.shape[0]
     if adj.device.type == "cpu":
-        return ref.intersect_ref(adj, src, dst, sentinel)
+        if chunk is None:
+            return ref.intersect_ref(adj, src, dst, sentinel)
+        return ref.intersect_chunks_ref(adj, src, dst, sentinel, chunk)
     dev = adj.device
     if dev.type != "cuda":
         raise ValueError(f"intersect_count runs on cuda or cpu tensors, not {dev}")
@@ -168,20 +205,41 @@ def intersect_count(adj, src, dst, *, sentinel: int):
     n_rows, dmax = adj.shape
     if sentinel != n_rows - 1:
         raise ValueError(f"sentinel {sentinel} is not the last row {n_rows - 1}")
-    e = src.shape[0]
+    most = INTERSECT_MASS // dmax        # edges one launch may take
+    step = chunk or max(e, 1)            # edges per partial count
+    if chunk is not None and not 0 < chunk <= most:
+        raise ValueError(f"chunk {chunk} x dmax {dmax} must lie in (0, {INTERSECT_MASS}]")
+    step = min(step, most)
     _expect(adj, "adj", torch.int32, (n_rows, dmax), dev)
     _expect(src, "src", torch.int32, (e,), dev)
     _expect(dst, "dst", torch.int32, (e,), dev)
-    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    row_len = row_lengths(adj, sentinel)
+    nch = -(-e // step)
     if e == 0:
-        return count[0]
-    lib = build.load("graph_ops")
-    rc = lib.graph_ops_intersect(adj.data_ptr(), n_rows, dmax, src.data_ptr(),
-                                 dst.data_ptr(), e, sentinel, count.data_ptr(),
-                                 _stream())
-    build.check(lib, rc, "intersect_count")
-    intersect_count.launches += 1
-    return count[0]
+        partial = torch.zeros((0,), dtype=torch.int32, device=dev)
+    else:
+        group = min(e, most // step * step)    # whole chunks per launch
+        lib = build.load("graph_ops")
+        # the partials (zeroed by the launches that write them), then the
+        # launches' scratch, 16-B aligned
+        head = -(-nch // 4) * 4
+        buf = torch.empty((head + lib.graph_ops_intersect_scratch(group, dmax),),
+                          dtype=torch.int32, device=dev)
+        partial = buf[:nch]
+        for g0 in range(0, e, group):
+            eg = min(group, e - g0)
+            rc = lib.graph_ops_intersect(
+                adj.data_ptr(), n_rows, dmax, src.data_ptr() + 4 * g0,
+                dst.data_ptr() + 4 * g0, row_len.data_ptr(), eg, step,
+                buf.data_ptr() + 4 * head,
+                buf.data_ptr() + 4 * (g0 // step), -(-eg // step), _stream())
+            build.check(lib, rc, "intersect_count")
+            intersect_count.launches += 1
+    if chunk is not None:
+        return partial
+    if partial.shape[0] == 1:
+        return partial[0]
+    return partial.sum(dtype=torch.int32)
 
 
 intersect_count.launches = 0

@@ -178,6 +178,17 @@ def intersect_ref(adj, src, dst, sentinel: int):
     return hit.sum(dtype=torch.int32)
 
 
+def intersect_chunks_ref(adj, src, dst, sentinel: int, chunk: int):
+    """``intersect_ref`` of each slice of ``chunk`` edges, as a
+    (ceil(e / chunk),) int32 tensor (the (chunk, dmax) gathers stay
+    bounded)."""
+    parts = [intersect_ref(adj, src[c:c + chunk], dst[c:c + chunk], sentinel)
+             for c in range(0, src.shape[0], chunk)]
+    if not parts:
+        return torch.zeros((0,), dtype=torch.int32, device=adj.device)
+    return torch.stack(parts)
+
+
 def advance_ref(f_idx, f_count, out_deg, row_ptr, col_idx, edge_w,
                 budget: int, sentinel: int, m_pad: int):
     """Merge-path expansion of a compacted frontier into ``budget`` edge

@@ -5,6 +5,9 @@ host-side format conversion ``to_bsr``, the counterparts of
 On CUDA tensors ``spmm_bsr`` checks device, dtype, shape and contiguity,
 allocates the output, launches on the current stream, raises when the
 launch function reports an error, and adds one to ``spmm_bsr.launches``.
+The kernel runs on the tensor cores: f32 operands as a split TF32 product
+(three passes, two when one operand is bf16), bf16 x bf16 in one bf16
+pass, all with f32 sums; the result meets the reference's f32 tolerance.
 On CPU tensors it calls ``ref.spmm_bsr_plain`` and launches nothing.
 """
 
@@ -37,7 +40,7 @@ def spmm_bsr(indices, blocks, x):
     if not (0 < bm <= MAX_BM and bk > 0 and rows % bk == 0 and F > 0 and K > 0):
         raise ValueError(f"spmm_bsr kernel takes 0 < bm <= {MAX_BM} and x rows a "
                          f"multiple of bk: bm={bm} bk={bk} x {tuple(x.shape)}")
-    if R * -(-F // 64) >= 2**31 or rows // bk >= 2**31:
+    if R * -(-F // 128) >= 2**31 or rows // bk >= 2**31:
         raise ValueError(f"too many blocks: R={R} F={F} C={rows // bk}")
     for name, t, dtypes, shape in (("indices", indices, (torch.int32,), (R, K)),
                                    ("blocks", blocks, tuple(_DTYPE), (R, K, bm, bk)),

@@ -16,8 +16,17 @@ It then runs the path once more, and kcore's sparse rounds and peel loops
 ``chip_smoke.py``'s profile (one line per kernel: calls, total and mean
 device ms), and times the tree's ``edge_relax`` and ``advance_frontier``
 on ``chip_smoke.py``'s phase-4 cases (CUDA events, 5 reps after a
-warm-up), so two commits also compare kernel by kernel.  Both take
-``chip_smoke.py`` from this checkout.
+warm-up), so two commits also compare kernel by kernel.  Then, on
+``chip_smoke.py``'s phase-7 inputs (the symmetrized web graph and
+``kron(20)``), it times the tree's ``intersect_count`` on the three
+intersect cases and on each whole oriented list (a launch per chunk, and
+one call where the tree's wrapper takes ``chunk``, whose first call is also
+read after the card idles and on a fresh copy of adj), by CUDA events and by
+the profiler's device time, prints what the list's candidates meet in the
+kernel's tiles (``chip_smoke.intersect_work``), profiles ``tc_count`` on both
+graphs, and times ``spmm_bsr`` on phase 10's block-sparse graph (F = 128;
+f32, bf16 and both mixed dtypes).  All of it takes ``chip_smoke.py`` from
+this checkout.
 """
 
 from __future__ import annotations
@@ -110,6 +119,8 @@ def main() -> int:
                          kwall)
         print(f"kcore launches: {json.dumps(gk.launch_counts())}", flush=True)
     kernel_cases(torch, cs, gk, fr, g, gsym)
+    intersect_cases(torch, cs, gk, gen_mod, gsym)
+    spmm_cases(torch, cs, gen_mod)
     return 0
 
 
@@ -133,6 +144,108 @@ def kernel_cases(torch, cs, gk, fr, g, gsym):
             sentinel=g.sentinel, m_pad=g.m_pad))
         print("  kernel case " + json.dumps(dict(kernel="advance", case=name, ms=ms)),
               flush=True)
+
+
+def intersect_cases(torch, cs, gk, gen_mod, gsym):
+    """The tree's intersect_count on chip_smoke's intersect cases and each
+    whole oriented list, then tc_count's profile, on the web graph and kron."""
+    import repro_torch as tc
+    from repro_torch.core import operators as ops
+    from repro_torch.core.algorithms import tc as tri
+    params = inspect.signature(gk.intersect_count).parameters
+    ch = cs.INTERSECT_CHUNK
+    ksrc, kdst, kn = gen_mod.table3_suite(10)["kron30"]()
+    kgsym = tc.from_coo(ksrc, kdst, kn, symmetrize=True, build_csc=True)
+    del ksrc, kdst
+    for label, g in (("web", gsym), ("kron", kgsym)):
+        oriented = cs.oriented_chunks(torch, tri, g)
+        adj, osrc, odst, row_len = oriented[:4]
+        work = cs.intersect_work(torch, osrc, odst, row_len)
+        print(f"  intersect work {label} " + json.dumps(work), flush=True)
+        for name, _, src, dst, _, sentinel in cs.intersect_cases(torch, label, g, *oriented):
+            def fn():
+                return gk.intersect_count(adj, src, dst, sentinel=sentinel)
+            print("  kernel case " + json.dumps(dict(
+                kernel="intersect", case=name, ms=cs.cuda_ms(torch, fn),
+                device_ms=cs.device_ms(torch, fn))), flush=True)
+        rows = {"launch per chunk": lambda: [
+            gk.intersect_count(adj, osrc[c:c + ch], odst[c:c + ch], sentinel=g.sentinel)
+            for c in range(0, osrc.shape[0], ch)]}
+        if "chunk" in params:
+            rows["one call"] = lambda: gk.intersect_count(adj, osrc, odst, sentinel=g.sentinel,
+                                                          chunk=ch)
+        for route, fn in rows.items():
+            dev_ms = cs.device_ms(torch, fn, reps=2)
+            print("  kernel case " + json.dumps(dict(
+                kernel="intersect", case=f"{label} whole list, {route}",
+                ms=cs.cuda_ms(torch, fn, reps=2), device_ms=dev_ms,
+                device_ps_per_candidate=None if dev_ms is None
+                else dev_ms * 1e9 / work["candidates"])), flush=True)
+        if "chunk" in params:
+            first_calls(torch, cs, gk, label, adj, osrc, odst, g.sentinel, ch)
+        del oriented, adj, osrc, odst, row_len
+        torch.cuda.empty_cache()
+        with ops.substrate_scope("cuda"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tri.tc_count(g)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            gk.reset_launches()
+            cs.print_profile(torch, gk, f"tc {label}",
+                             {"tc_count": cs.Run(lambda: tri.tc_count(g))}, wall)
+            print(f"tc {label} launches: {json.dumps(gk.launch_counts())}", flush=True)
+    del kgsym
+    torch.cuda.empty_cache()
+
+
+def first_calls(torch, cs, gk, label, adj, osrc, odst, sentinel, ch):
+    """The intersect kernels' device time of one whole-list call (one pass
+    each, under the profiler): after the card has idled 5 s; on a fresh
+    copy of adj (its row lengths computed inside the call, as in
+    tc_count), then again on that copy; on another fresh copy whose row
+    lengths were computed before the call; and on the first adj right
+    after a full pass over another copy.  It tells a first call's extra
+    time inside tc_count apart from the card's idling, adj's freshness and
+    the pass before it."""
+    from repro_torch.kernels.graph_ops import ops as gops
+
+    def once(a):
+        events, _ = cs.profiled(torch, lambda: gk.intersect_count(
+            a, osrc, odst, sentinel=sentinel, chunk=ch))
+        us = sum(getattr(ev, "self_device_time_total", 0) or 0 for ev in events or ()
+                 if "intersect_" in ev.key)
+        return us / 1e3
+
+    torch.cuda.synchronize()
+    time.sleep(5)
+    rows = {"after 5 s idle": once(adj)}
+    fresh = adj.clone()
+    rows["fresh copy of adj"] = once(fresh)
+    rows["fresh copy, again"] = once(fresh)
+    other = adj.clone()
+    gops.row_lengths(other, sentinel)
+    torch.cuda.synchronize()
+    rows["another fresh copy, row lengths first"] = once(other)
+    (fresh != sentinel).sum(1, dtype=torch.int32)
+    rows["first adj after a pass over a copy"] = once(adj)
+    print(f"  intersect first calls {label} " + json.dumps(rows), flush=True)
+    del fresh, other
+
+
+def spmm_cases(torch, cs, gen_mod):
+    """The tree's spmm_bsr on chip_smoke's block-sparse graph, F = 128."""
+    from repro_torch.kernels.spmm_bsr import spmm_bsr as sk
+    src, dst, n = gen_mod.web_crawl_like(16, 13, 16, 3, seed=0)
+    idx_np, blocks_np = sk.to_bsr(src, dst, gen_mod.random_weights(len(src), seed=1), n)
+    idx, blocks = torch.from_numpy(idx_np).cuda(), torch.from_numpy(blocks_np).cuda()
+    x = torch.randn((idx.shape[0] * blocks.shape[3], 128),
+                    generator=torch.Generator(device="cuda").manual_seed(11), device="cuda")
+    for a_name, x_name in (("float32", "float32"),) + tuple(d[:2] for d in cs.SPMM_DTYPES):
+        a_t, x_t = blocks.to(getattr(torch, a_name)), x.to(getattr(torch, x_name))
+        ms = cs.cuda_ms(torch, lambda: sk.spmm_bsr(idx, a_t, x_t))
+        print("  kernel case " + json.dumps(dict(kernel="spmm_bsr", case=f"blocks {a_name} x "
+                                                 f"{x_name}, F = 128", ms=ms)), flush=True)
 
 
 if __name__ == "__main__":

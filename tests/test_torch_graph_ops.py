@@ -359,6 +359,49 @@ def test_intersect_count_matches_jax(case):
         assert want > 0
 
 
+@pytest.mark.parametrize("chunk", [None, 64, 100])
+@pytest.mark.parametrize("case", ["hub_leaves", "web_like", "empty_rows"])
+def test_intersect_count_chunks(case, chunk):
+    """Whole and chunk by chunk (as tc_count's single call asks for the
+    counts), every slice's count is the JAX package's, through the wrapper
+    and through the operator on both substrates."""
+    adj, src, dst, sent = intersect_batch_case(case)
+    tadj, tsrc, tdst = T(adj, src, dst)
+    want = int(jgk.intersect_count(*J(adj, src, dst), sentinel=sent))
+    base = tgk.intersect_count(tadj, tsrc, tdst, sentinel=sent, chunk=chunk)
+    assert base.dtype == torch.int32
+    if chunk is None:
+        assert base.shape == () and int(base) == want
+    else:
+        assert base.shape == (-(-len(src) // chunk),) and int(base.sum()) == want
+        for i, c in enumerate(range(0, len(src), chunk)):
+            assert int(base[i]) == int(jgk.intersect_count(
+                *J(adj, src[c:c + chunk], dst[c:c + chunk]), sentinel=sent))
+    for sub in tops.SUBSTRATES:
+        out = tops.intersect_batch(tadj, tsrc, tdst, sentinel=sent, substrate=sub,
+                                   chunk=chunk)
+        assert torch.equal(out, base)
+
+
+def test_row_lengths_are_kept_per_adjacency_until_it_changes():
+    """The intersect wrapper's row lengths: adj's real lengths, computed
+    once for one adjacency and again after it is written in place or for
+    another tensor."""
+    from repro_torch.kernels.graph_ops import ops as tgo
+    adj, _, _, sent = intersect_batch_case("web_like")
+    tadj = torch.from_numpy(adj.copy())
+    first = tgo.row_lengths(tadj, sent)
+    assert torch.equal(first, (tadj != sent).sum(1, dtype=torch.int32))
+    assert first.dtype == torch.int32 and tgo.row_lengths(tadj, sent) is first
+    other = tadj.clone()
+    assert tgo.row_lengths(other, sent) is not first
+    row = int(torch.argmax(first))
+    tadj[row, 0] = sent   # an in-place write: the lengths are computed again
+    again = tgo.row_lengths(tadj, sent)
+    assert int(again[row]) == int(first[row]) - 1
+    assert torch.equal(again, (tadj != sent).sum(1, dtype=torch.int32))
+
+
 def test_cpu_wrappers_take_plain_version_and_launch_nothing():
     jg, tg = build("hub_leaves")
     tgk.reset_launches()

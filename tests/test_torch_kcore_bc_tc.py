@@ -216,6 +216,26 @@ def test_tc_count_exact(gname, edge_chunk):
     assert tcount == oracles.triangle_count(*edges(tg), tg.n)
 
 
+@pytest.mark.parametrize("edge_chunk", [64, 500, 32_768])
+def test_tc_count_stats_follow_the_chunks(edge_chunk):
+    """tc_count's counters do not depend on how its intersections are
+    launched: rounds = ne_pad // edge_chunk and edges_touched = ne_pad x
+    dmax on both substrates, with ne_pad the oriented list padded to whole
+    chunks; the counts agree."""
+    jg, tg = sym_graphs("crawl")
+    adj, osrc, _ = ttc.oriented_adjacency(tg)
+    ne_pad = -(-osrc.shape[0] // edge_chunk) * edge_chunk
+    out = {}
+    for sub in tops.SUBSTRATES:
+        with tops.substrate_scope(sub):
+            out[sub] = ttc.tc_count(tg, edge_chunk=edge_chunk)
+    for count, stats in out.values():
+        assert count == out["torch"][0] > 0
+        assert stats.rounds == ne_pad // edge_chunk
+        assert stats.edges_touched == ne_pad * adj.shape[1]
+    stats_equal(jtc.tc_count(jg, edge_chunk=edge_chunk)[1], out["torch"][1])
+
+
 def test_tc_substrates_agree():
     _, tg = sym_graphs("crawl")
     counts = {}
