@@ -56,6 +56,47 @@ non-zero exit before its last line:
    phase 6;
 9. paper suite on kron: the seven calls of ``paper_suite.run_input``
    under both substrates, the same way;
+9a. fetches per stretch: bfs_dd_sparse on ``path(65,536)``, fused, with
+   every blocking sync counted (torch's sync debug mode, its warnings
+   caught) and the engine's ``fetch`` calls: at most 3 each;
+   sssp_dd_sparse on the web graph, 2 x stretches <= rounds; bfs_dd_sparse
+   fused and per-round walls on the web graph, twice each (printed, no
+   target; the rung loops of the first fused run are kept with the graph
+   and replayed by the second, and each fused run prints its captures);
+   then the device loop (``kernels/device_loop``: a captured
+   round replayed by a CUDA graph's WHILE node) against its plain Python
+   do-while on 2,000 rounds of the path's stretch and on the web graph's
+   first stretch, state and round count bitwise, both timed;
+9b. deterministic add: pr_push, pr_pull and bc_brandes under
+   ``deterministic_add_scope`` on the web graph, bitwise equal across the
+   substrates; on phase 5's quickstart graph the card against the CPU:
+   pr_push's raw rank and residual and bc bitwise, pr_pull within PR_TOL
+   (its per-round sums are plain torch reductions, in another order on
+   the CPU);
+9c. out of core: both web graphs cut with ``tier_graph(nshards=16,
+   resident_shards=2, build_csc=True)`` (pinned host shards; the CSR 8
+   times the pool); edge_relax on the shards as the streamed path gives
+   them (push over a middle and the partial last CSR shard, pull over a
+   CSC shard, the reversed push), bitwise; then bfs_dd_sparse (fused,
+   per-round, and fused under "torch"), sssp_dd_sparse and bfs_dirop
+   (CSC streamed) on the weighted graph, from the vertex whose reach
+   crosses the most shards (a reversed max and min push of each vertex's
+   shard to a fixed point; the hub's reach stays in one shard), each
+   streaming more shards than the pool holds, and cc_dd_sparse, pr_push
+   (``OOC_PR_ITERS`` = 20 rounds) and pr_pull on the symmetrized one, every run from an empty pool:
+   labels bitwise equal to
+   the resident runs, ranks within PR_TOL, ``h2d_bytes == shards_streamed
+   x shard_bytes``, edges_touched equal for bfs_dirop and pr_pull; pr_push
+   under deterministic add at pools of 2 and 16 and eager, bitwise; each
+   run prints its wall, H2D GB/s, io_wait_us, buffer hits, the device's
+   kernel and copy busy shares (a second, profiled call) and its time per
+   edge touched against the resident run's; then the weighted graph
+   through the store (``save_graph`` under ``build/``, ``open_graph``
+   with ``verify="open"``, bfs equal, then a reversed push and a pull
+   over every shard through the pinned staging ring, bitwise to the
+   resident relaxes; the store deleted);
+9d. the memory tiers on the card (``benchmarks/memtier.py``): HBM copy,
+   pinned and pageable H2D, D2H, and 4-byte copy latencies;
 10. the other kernels at full width, each against its plain version on the
    card: bf16 flash attention against ``flash_attention_plain`` and
    ``attention_ref`` within rtol 8e-3 (one bf16 ulp) + 1e-3 x rms(want),
@@ -99,6 +140,16 @@ residual-threshold exit reads float sums taken in another order (seen on
 kron: 143 rounds under "cuda", 142 under "torch").  Its rounds are all
 dense then, each charging m, and that is checked on both sides.
 
+The device loop (no TPU kernel: the graph that replaces the reference's
+stretch ``while_loop``) has a line of its own before the kernels line,
+``{"device_loop": {...}}``: its graph launches on the main path, and 2,000
+rounds of the path's stretch timed through the graph (``ms``) and through
+the plain Python loop (``plain_ms``), with the largest difference of their
+labels (``max_abs_err``).  A kernel's ``launches`` count the rounds a loop
+replays: a capture launches nothing, and each loop adds its captured
+round's launches for every round after its eager first one
+(``StretchGraphs.settle``).
+
 Each kernel row prints ``ms`` (CUDA events, 5 reps after a warm-up; an
 intersect row also ``device_ms``, the profiler's device time of a call,
 since a single call's events mostly time the host's launches),
@@ -123,6 +174,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -986,6 +1039,416 @@ def bc_hazard(torch, ops, bc_mod, g, source, runs_by_sub):
               f"bc_max={float(score[torch.isfinite(score)].max())}", flush=True)
 
 
+# ---- phases 9a-9d: fetches per stretch, det add, out of core, memtier --------
+
+LOOP_ROUNDS = 2_000            # the timed device-loop case's stretch, in rounds
+OOC_PR_ITERS = 20              # pr_push's rounds out of core (depth cut from the JAX
+                               # outofcore suite's 50: every round streams the graph)
+
+
+def sync_count(torch, fn):
+    """``(fn(), blocking syncs it made)``: torch's sync debug mode warns on
+    each synchronizing CUDA call; the warnings are caught and counted."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    return out, len(syncs)
+
+
+def fetch_counted(eng, fn):
+    before = eng.fetch.calls
+    out = fn()
+    return out, eng.fetch.calls - before
+
+
+def device_loop_case(torch, eng, fr, dl, bfs, label, g, source, limit):
+    """The device loop against its plain version (a Python do-while that
+    reads the band flag after each round) on ``limit`` rounds of the first
+    sparse stretch of bfs from ``source``: state and round count bitwise,
+    then both timed."""
+    e = eng.SparseLadderEngine(g, bfs._sparse_step, bfs._dense_step)
+    mask = bfs._source_mask(g, source)
+    state = (bfs._init_dist(g, source), mask, fr.round_scalars(g, mask))
+    _, cap_need, mass_med, _ = state[2].tolist()
+    cap, budget, dense = e._pick(cap_need, mass_med)
+    check(not dense, f"device loop {label}: the first round is not sparse")
+    one_round = eng._sparse_round(
+        g, step=bfs._sparse_step, capacity=cap, budget=budget,
+        lo_cap=fr.ladder_below(cap, e.cap_ladder),
+        lo_budget=fr.ladder_below(budget, e.budget_ladder), cutoff=e.sparse_cutoff)
+    with dl.StretchGraphs() as graphs:
+        before = dl.do_while.launches
+        (lab, msk, sc), k = dl.do_while(one_round, state, limit, graphs=graphs, key=label)
+        k = int(k)
+        graphs.settle(k)
+        check(dl.do_while.launches == before + 1, f"device loop {label}: no launch counted")
+        (plab, pmsk, psc), pk = dl.do_while_plain(one_round, state, limit)
+        check(k == pk and torch.equal(bits(torch, lab), bits(torch, plab))
+              and torch.equal(msk, pmsk) and torch.equal(sc, psc),
+              f"device loop {label}: differs from its plain version ({k} vs {pk} rounds)")
+        err = float((lab.double() - plab.double()).abs().max())
+        t_k = cuda_ms(torch, lambda: dl.do_while(one_round, state, limit, graphs=graphs,
+                                                 key=label))
+        t_p = cuda_ms(torch, lambda: dl.do_while_plain(one_round, state, limit))
+    return dict(case=f"{label}: {k} rounds of rung (cap {cap}, budget {budget})", rounds=k,
+                ms=t_k, plain_ms=t_p, max_abs_err=err, compare="bitwise")
+
+
+def fetch_phase(torch, np, tc, gen_mod, eng, fr, dl, bfs, sssp, g, source):
+    """9a: blocking fetches per stretch.  BFS on path(65,536), fused, with
+    every blocking sync on the card counted (at most 3); sssp_dd_sparse on
+    the web graph, 2 x stretches <= rounds; bfs_dd_sparse's fused and
+    per-round walls on the web graph (printed, no target); then the device
+    loop against its plain version, on the path and on the web graph."""
+    src, dst, n = gen_mod.path(65_536)
+    gp = tc.from_coo(src, dst, n)
+    bfs.bfs_dd_sparse(gp, 0, max_rounds=8)          # warm every kernel of it up
+    t0 = time.perf_counter()
+    ((dist, st), fetches), syncs = sync_count(
+        torch, lambda: fetch_counted(eng, lambda: bfs.bfs_dd_sparse(gp, 0)))
+    wall = (time.perf_counter() - t0) * 1e3
+    check(int((dist < 1e30).sum()) == n and float(dist[n - 1]) == n - 1,
+          "path bfs: wrong distances")
+    print(f"fetches: path(65536) bfs_dd_sparse fused: rounds={st.rounds} fetches={fetches} "
+          f"blocking_syncs={syncs} wall_ms={wall}", flush=True)
+    check(syncs <= 3 and fetches <= 3, f"path bfs: {syncs} blocking syncs, {fetches} fetches")
+    (dist_s, st_s), fetches = fetch_counted(eng, lambda: sssp.sssp_dd_sparse(g, source))
+    stretches = fetches - 1
+    print(f"fetches: web sssp_dd_sparse: rounds={st_s.rounds} stretches={stretches} "
+          f"(sparse {st_s.sparse_rounds}, dense {st_s.dense_rounds})", flush=True)
+    check(1 <= stretches and 2 * stretches <= st_s.rounds,
+          f"web sssp: {stretches} stretches for {st_s.rounds} rounds")
+    walls = {}
+    for fused in (True, False, True, False):
+        torch.cuda.synchronize()
+        caps, cap_s = dl.do_while.captures, dl.do_while.capture_s
+        t0 = time.perf_counter()
+        (d, s), f = fetch_counted(eng, lambda: bfs.bfs_dd_sparse(g, source, fused=fused))
+        torch.cuda.synchronize()
+        walls.setdefault(fused, []).append((time.perf_counter() - t0) * 1e3)
+        walls[f"fetches {fused}"] = f
+        if fused:
+            walls.setdefault("captures", []).append(
+                (dl.do_while.captures - caps, (dl.do_while.capture_s - cap_s) * 1e3))
+    print(f"fetches: web bfs_dd_sparse walls_ms fused={walls[True]} per_round={walls[False]} "
+          f"fetches fused={walls['fetches True']} per_round={walls['fetches False']}; "
+          f"the fused runs' (captures, ms of host time) {walls['captures']}", flush=True)
+    rows = [device_loop_case(torch, eng, fr, dl, bfs, "path(65536)", gp, 0, LOOP_ROUNDS),
+            device_loop_case(torch, eng, fr, dl, bfs, "web", g, source, 10**6)]
+    for row in rows:
+        print("  device_loop " + json.dumps(row), flush=True)
+    return rows
+
+
+def det_phase(torch, np, tc, gen_mod, ops, pagerank, bc, g, gsym, source):
+    """9b: deterministic add on the card: pr_push, pr_pull and bc under
+    ``deterministic_add_scope`` on the web graph, bitwise equal across the
+    two substrates; on phase 5's quickstart graph, pr_push's raw rank and
+    residual and bc's scores bitwise equal to the CPU's, pr_pull within
+    PR_TOL (its per-round sums are plain torch reductions)."""
+    src, dst, n = gen_mod.web_crawl_like(16, 5, 8, 2, seed=0)
+    w = gen_mod.random_weights(len(src), seed=1)
+    small_source = int(np.argmax(np.bincount(src, minlength=n)))
+    small = {dev: (tc.from_coo(src, dst, n, w, build_csc=True, device=dev),
+                   tc.from_coo(src, dst, n, symmetrize=True, build_csc=True, device=dev))
+             for dev in ("cuda", "cpu")}
+    with ops.deterministic_add_scope(True):
+        raw = [pagerank._pr_push_raw(small[dev][1], 0.85, 1e-9, 10_000)
+               for dev in ("cuda", "cpu")]
+        check(all(torch.equal(bits(torch, x.cpu()), bits(torch, y)) for x, y in
+                  zip(raw[0][:2], raw[1][:2])) and raw[0][2] == raw[1][2],
+              "det pr_push small: raw rank and residual differ between card and cpu")
+        for name, fn in (("pr_push", lambda gw, gs, s: pagerank.pr_push(gs)),
+                         ("pr_pull", lambda gw, gs, s: pagerank.pr_pull(gs)),
+                         ("bc_brandes", lambda gw, gs, s: bc.bc_brandes(gw, s))):
+            res = {}
+            for sub in ("cuda", "torch"):
+                with ops.substrate_scope(sub):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res[sub] = fn(g, gsym, source)
+                    torch.cuda.synchronize()
+                    res[sub + " ms"] = (time.perf_counter() - t0) * 1e3
+            compare_runs(torch, f"det {name} web", (*res["cuda"], 0, 0),
+                         (*res["torch"], 0, 0))
+            a, b = (fn(*small[dev], small_source) for dev in ("cuda", "cpu"))
+            # pr_pull's dangling mass and residual are plain torch sums,
+            # taken in another order on the CPU: allclose there
+            compare_runs(torch, f"det {name} small card/cpu", (*a, 0, 0), (*b, 0, 0),
+                         PR_TOL if name == "pr_pull" else None)
+            check(bool(torch.isfinite(res["cuda"][0]).all()), f"det {name}: non-finite")
+            print(f"det add {name}: web bitwise across substrates (cuda {res['cuda ms']} ms, "
+                  f"torch {res['torch ms']} ms), quickstart graph bitwise card == cpu",
+                  flush=True)
+
+
+def shard_relax_cases(torch, tg, rng):
+    """edge_relax on the web graph's shards as the streamed path gives them
+    (``tiered._shard_relax`` / ``_shard_pull``): the push case over a
+    middle CSR shard and the last, partial one (sentinel padding), the pull
+    case over a CSC shard, and the reversed push over a CSR shard (src
+    unsorted), f32 min under a vertex mask."""
+    dev = tg.device
+    n_pad = tg.n_pad
+    mask = torch.rand(n_pad, generator=rng, device=dev) < 0.3
+    mask[n_pad - 1] = False
+    val = torch.rand(n_pad, generator=rng, device=dev) * 100.0
+    init = torch.full((n_pad,), 50.0, device=dev)
+
+    def shard(host, sid):
+        s, d, w = host[sid]
+        return tuple(torch.from_numpy(x).to(dev) for x in (s, d, w))
+
+    mid, last = tg.nshards // 2, tg.nshards - 1
+    out = []
+    for name, (s, d, w), case in (
+            (f"shard push f32 min, CSR shard {mid}", shard(tg._host, mid), "push"),
+            (f"shard push f32 min, last CSR shard {last} "
+             f"({int(tg.shard_sizes[last])} of {tg.epd} slots real)",
+             shard(tg._host, last), "push"),
+            (f"shard pull f32 min, CSC shard {mid}", shard(tg._csc_host, mid), "pull")):
+        out.append((name, dict(src=s, dst=d, w=w, mask=mask, src_val=val, out_init=init,
+                               kind="min", use_weight=True, vertex_mask=True, case=case)))
+    s, d, w = shard(tg._host, mid)
+    out.append((f"shard reversed push f32 min, CSR shard {mid} (src = its dst, unsorted)",
+                dict(src=d, dst=s, w=w, mask=mask, src_val=val, out_init=init, kind="min",
+                     use_weight=True, vertex_mask=True, case="pull")))
+    return out
+
+
+def busy_shares(torch, fn):
+    """``(kernel_ms, copy_ms)`` of one profiled call of ``fn``: device time
+    of its kernels and of its copies (which overlap them on the copy
+    stream), or ``(None, None)`` where the profiler records none."""
+    events, _ = profiled(torch, fn)
+    kern = copy = 0.0
+    for ev in events or ():
+        ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        if "Memcpy" in ev.key or "memcpy" in ev.key:
+            copy += ms
+        else:
+            kern += ms
+    return (kern, copy) if kern > 0 else (None, None)
+
+
+def far_source(torch, ops, eng, g, owner):
+    """The source of the streamed traversals: the vertex whose reach along
+    out-edges spans the most shards of the cut (``owner``: each vertex's
+    shard), ties to the larger out-degree.  Each vertex's shard index is
+    propagated backwards along the edges (a reversed push) to a fixed
+    point, once by max and once by min: the last and the first shard it
+    reaches.  Returns ``(source, first shard, last shard, rounds)``."""
+    valid = g.valid_vertex_mask()
+    sid = owner.to(torch.float32)
+
+    def step(state):
+        hi, lo, _ = state
+        nhi = ops.push_dense(g, hi, valid, hi, kind="max", use_weight=False, reverse=True)
+        nlo = ops.push_dense(g, lo, valid, lo, kind="min", use_weight=False, reverse=True)
+        return nhi, nlo, torch.any(nhi != hi) | torch.any(nlo != lo)
+
+    rounds, (hi, lo, _) = eng.run_dense(step, (sid, sid.clone(), True), lambda st: st[2],
+                                        100_000)
+    span = (hi - lo).to(torch.int64) + 1
+    score = torch.where(valid, span * (1 << 32) + g.out_deg.to(torch.int64), -1)
+    v = int(score.argmax())
+    return v, int(lo[v]), int(hi[v]), rounds
+
+
+def ooc_run(torch, label, fn, tg, resident=None, busy=False):
+    """One streamed run from an empty pool (so the stream counters are the
+    run's own): wall, stream counters, exact h2d accounting, with ``busy``
+    the device's kernel and copy busy shares (a second, profiled call), and
+    against a resident run ``(labels, stats, wall_ms)`` the time per edge
+    touched."""
+    tg._pool.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, st = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    check(st.placement == "tiered" and st.h2d_bytes == st.shards_streamed * tg.shard_bytes,
+          f"ooc {label}: h2d_bytes {st.h2d_bytes} != {st.shards_streamed} x {tg.shard_bytes}")
+    kern, copy = busy_shares(torch, fn) if busy else (None, None)
+    line = dict(run=label, wall_ms=wall, rounds=st.rounds, edges_touched=st.edges_touched,
+                h2d_bytes=st.h2d_bytes, shards_streamed=st.shards_streamed,
+                buffer_hits=st.buffer_hits, io_wait_us=st.io_wait_us,
+                h2d_gbps=st.h2d_bytes / (wall * 1e-3) / 1e9,
+                kernel_busy_share=None if kern is None else kern / wall,
+                copy_busy_share=None if copy is None else copy / wall,
+                pull_rounds=st.pull_rounds)
+    if resident is not None and st.edges_touched and resident[1].edges_touched:
+        line["per_edge_vs_resident"] = ((wall / st.edges_touched)
+                                        / (resident[2] / resident[1].edges_touched))
+    print("  ooc " + json.dumps(line), flush=True)
+    return labels, st, wall
+
+
+def timed_run(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, st = fn()
+    torch.cuda.synchronize()
+    return labels, st, (time.perf_counter() - t0) * 1e3
+
+
+def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gsym, hub,
+              rng):
+    """9c: out of core on phase 3's graphs, each cut into 16 shards with a
+    pool of 2 (the CSR 8 times the pool).  Labels bitwise equal to the
+    resident runs, pagerank bitwise across pools and fused against eager
+    under deterministic add and allclose to the resident run, h2d_bytes ==
+    shards_streamed x shard_bytes exactly, edges_touched equal to the
+    resident run's for bfs_dirop and pr_pull; then the web graph through
+    the store.  The traversals of the web graph start at ``far_source``,
+    whose reach crosses the most shards (the hub's stays in one), and each
+    must stream more shards than the pool holds.  Returns (edge_relax
+    shard rows, edge_relax launches)."""
+    t0 = time.perf_counter()
+    tg = tiered.tier_graph(g, nshards=16, resident_shards=2, build_csc=True)
+    tgs = tiered.tier_graph(gsym, nshards=16, resident_shards=2, build_csc=True)
+    print(f"ooc: cut both graphs into 16 pinned host shards in {time.perf_counter() - t0} s; "
+          f"web epd={tg.epd} shard_bytes={tg.shard_bytes} csr_bytes={tg.csr_bytes} "
+          f"budget={tg.resident_budget}; sym shard_bytes={tgs.shard_bytes} "
+          f"csr_bytes={tgs.csr_bytes}", flush=True)
+    rows = []
+    for name, kw in shard_relax_cases(torch, tg, rng):
+        row = run_edge_relax_case(torch, gk, name, kw)
+        rows.append(row)
+        print("  edge_relax " + json.dumps(row), flush=True)
+    t0 = time.perf_counter()
+    source, first, last, rounds = far_source(torch, ops, eng, g, tg.owner)
+    print(f"ooc: source {source} (out-degree {int(g.out_deg[source])}) reaches shards "
+          f"{first}..{last} of the web graph's cut (the hub's reach: shards "
+          f"{int(tg.owner[hub])}..); found in {rounds} rounds, "
+          f"{(time.perf_counter() - t0) * 1e3} ms", flush=True)
+    check(last - first + 1 > tg.resident_shards,
+          f"ooc: no source reaches more than {tg.resident_shards} shards")
+    res = {name: timed_run(torch, fn) for name, fn in (
+        ("bfs", lambda: bfs.bfs_dd_sparse(g, source)),
+        ("sssp", lambda: sssp.sssp_dd_sparse(g, source)),
+        ("dirop", lambda: bfs.bfs_dirop(g, source)),
+        ("cc", lambda: cc.cc_dd_sparse(gsym)),
+        ("pr_push", lambda: pagerank.pr_push(gsym, max_iters=OOC_PR_ITERS)),
+        ("pr_pull", lambda: pagerank.pr_pull(gsym)))}
+    gk.reset_launches()
+    # busy shares (a profiled second call) of one run of each kind
+    for label, fn, ref, exact, busy in (
+            ("bfs_dd_sparse", lambda: bfs.bfs_dd_sparse(tg, source), "bfs", True, True),
+            ("bfs_dd_sparse(fused=False)", lambda: bfs.bfs_dd_sparse(tg, source, fused=False),
+             "bfs", True, False),
+            ("sssp_dd_sparse", lambda: sssp.sssp_dd_sparse(tg, source), "sssp", True, False),
+            ("bfs_dirop", lambda: bfs.bfs_dirop(tg, source), "dirop", True, True),
+            ("cc_dd_sparse", lambda: cc.cc_dd_sparse(tgs), "cc", True, False),
+            ("pr_push", lambda: pagerank.pr_push(tgs, max_iters=OOC_PR_ITERS), "pr_push",
+             False, True),
+            ("pr_pull", lambda: pagerank.pr_pull(tgs), "pr_pull", False, True)):
+        web = ref in ("bfs", "sssp", "dirop")
+        labels, st, _ = ooc_run(torch, label, fn, tg if web else tgs, res[ref], busy)
+        if web:
+            check(st.shards_streamed > tg.resident_shards,
+                  f"ooc {label}: {st.shards_streamed} shards streamed, the pool holds "
+                  f"{tg.resident_shards}")
+        want = res[ref][0]
+        if exact:
+            check(torch.equal(bits(torch, labels), bits(torch, want)),
+                  f"ooc {label}: labels differ from the resident run")
+        else:
+            check(torch.allclose(labels, want, rtol=PR_TOL[0], atol=PR_TOL[1]),
+                  f"ooc {label}: ranks outside {PR_TOL} of the resident run")
+        if ref in ("dirop", "pr_pull"):
+            check(st.edges_touched == res[ref][1].edges_touched
+                  and st.rounds == res[ref][1].rounds,
+                  f"ooc {label}: edges_touched {st.edges_touched} != resident "
+                  f"{res[ref][1].edges_touched}")
+    launches = gk.launch_counts()
+    print(f"ooc launches (cuda): {json.dumps(launches)}", flush=True)
+    check(launches["edge_relax"] > 0, "ooc: edge_relax was not launched on the streamed path")
+    with ops.substrate_scope("torch"):
+        labels, st, _ = ooc_run(torch, "bfs_dd_sparse [torch]",
+                                lambda: bfs.bfs_dd_sparse(tg, source), tg, res["bfs"])
+    check(torch.equal(labels, res["bfs"][0]) and st.shards_streamed > tg.resident_shards,
+          f"ooc bfs [torch]: labels differ, or {st.shards_streamed} shards streamed")
+    check(gk.launch_counts() == launches, "ooc: the torch substrate launched a kernel")
+    tgs16 = tiered.tier_graph(gsym, nshards=16, resident_shards=16)
+    with ops.deterministic_add_scope(True):
+        det = {}
+        for label, t, fused in (("pool 2", tgs, True), ("pool 16", tgs16, True),
+                                ("pool 2, eager", tgs, False)):
+            det[label] = ooc_run(torch, f"pr_push det {label}",
+                                 lambda: pr_push_streamed(torch, eng, pagerank, t, fused), t)[0]
+    check(torch.equal(det["pool 2"], det["pool 16"]) and
+          torch.equal(det["pool 2"], det["pool 2, eager"]),
+          "ooc pr_push det: not bitwise across pools and regimes")
+    check(torch.allclose(det["pool 2"], res["pr_push"][0], rtol=PR_TOL[0], atol=PR_TOL[1]),
+          "ooc pr_push det: outside PR_TOL of the resident run")
+    del tgs, tgs16
+    directory = ROOT / "build" / f"chip_store_{os.getpid()}"
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        store.save_graph(tg, str(directory))
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        opened = store.open_graph(str(directory), resident_shards=2, verify="open")
+        t_open = time.perf_counter() - t0
+        check(opened.shard_crcs == tg.shard_crcs and opened.verified,
+              "store: CRCs differ from the cut's")
+        labels, st, _ = ooc_run(torch, "bfs_dd_sparse [store, mmap]",
+                                lambda: bfs.bfs_dd_sparse(opened, source), opened, res["bfs"])
+        check(torch.equal(labels, res["bfs"][0]) and st.shards_streamed > opened.resident_shards,
+              f"store bfs: labels differ, or {st.shards_streamed} shards streamed")
+        # every shard of both directions through the pinned staging ring
+        vals = torch.rand(g.n_pad, generator=rng, device="cuda") * 100.0
+        act = g.valid_vertex_mask()
+        io0 = opened.io.snapshot()
+        for name, got, want in (
+                ("reversed push", ops.push_dense(opened, vals, act, vals, reverse=True),
+                 ops.push_dense(g, vals, act, vals, reverse=True)),
+                ("pull", ops.pull_dense(opened, vals, act, vals), ops.pull_dense(g, vals, act, vals))):
+            check(torch.equal(bits(torch, got), bits(torch, want)),
+                  f"store {name}: differs from the resident relax")
+        streamed = opened.io.shards_streamed - io0[1]
+        check(opened.io.h2d_bytes - io0[0] == streamed * opened.shard_bytes and streamed >= 31,
+              f"store relaxes: {streamed} shards streamed")
+        print(f"store: saved in {t_save} s, opened with verify='open' in {t_open} s, "
+              f"bfs equal; a reversed push and a pull over every shard streamed {streamed} "
+              f"shards through the staging ring, bitwise equal to the resident relaxes",
+              flush=True)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return rows, launches["edge_relax"]
+
+
+def pr_push_streamed(torch, eng, pagerank, tg, fused):
+    """pr_push's streamed run of ``OOC_PR_ITERS`` rounds through
+    ``run_streamed(fused=...)``, normalised as ``pr_push`` does: the eager
+    regime is the runner's option, not pr_push's."""
+    valid = tg.valid_vertex_mask()
+    step, cond, active = pagerank._pr_streamed_fns(0.85, 1e-9)
+    io0 = tg.io.snapshot()
+    state0 = (torch.zeros(tg.n_pad, device=tg.device),
+              torch.where(valid, 1.0 - 0.85, 0.0))
+    rounds, (rank, resid) = eng.run_streamed(tg, step, state0, cond, active, OOC_PR_ITERS,
+                                             fused=fused)
+    rank = rank + resid
+    return (torch.where(valid, rank / rank.sum(), 0.0),
+            pagerank._dense_stats(tg, rounds, io0))
+
+
+def memtier_phase(memtier):
+    """9d: the tiers measured on the card (``benchmarks/memtier.py``)."""
+    rows = memtier.device_rows("cuda")
+    for name, us, derived, _ in rows:
+        print(f"  memtier {name},{us},{derived}", flush=True)
+
+
 # ---- phases 10-12: flash attention, spmm_bsr, embedding_bag, the layer and --
 # ---- the kernels_bench entry point -------------------------------------------
 
@@ -1457,7 +1920,11 @@ def main() -> int:
     from repro_torch.core.algorithms import tc as tri
     from repro_torch.graphs import generators as gen_mod
     from repro_torch import kernels as kern
-    from repro_torch.benchmarks import kernels_bench
+    from repro_torch import checkpoint as store
+    from repro_torch.benchmarks import kernels_bench, memtier
+    from repro_torch.core import engine as eng
+    from repro_torch.core import tiered
+    from repro_torch.kernels import device_loop as dl
     from repro_torch.kernels import build
     from repro_torch.kernels import graph_ops as gk
     from repro_torch.kernels.embedding_bag import embedding_bag as ek
@@ -1528,11 +1995,15 @@ def main() -> int:
     # 6. the main path: counts set to 0 just before, read just after
     main_runs = main_path_runs(algos, g, gsym, source)
     gk.reset_launches()
+    dl.do_while.launches = 0
     cuda_runs = run_path(torch, main_runs, "cuda", ops)
     launches = gk.launch_counts()
-    print(f"main path launches: {json.dumps(launches)}", flush=True)
+    loop_launches = dl.do_while.launches
+    print(f"main path launches: {json.dumps(launches)}, device loops {loop_launches}",
+          flush=True)
     for k in ("edge_relax", "advance"):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    check(loop_launches > 0, "the device loop was not launched on the main path")
     torch_runs = run_path(torch, main_runs, "torch", ops)
     check(gk.launch_counts() == launches, "the torch substrate launched a kernel")
     for name, run in main_runs.items():
@@ -1619,8 +2090,26 @@ def main() -> int:
     check(bool(torch.isfinite(kron_cuda["pr_push"][0]).all()), "kron: non-finite ranks")
     print("kron suite: cuda == torch (labels bitwise, pagerank and bc allclose, "
           "RunStats equal but for pagerank's round slack)", flush=True)
-    del (g, gsym, kg, kg_unw, kgsym, main_runs, cuda_runs, torch_runs, kron_cuda,
-         kron_torch, kw, mask)
+    del kron_cuda, kron_torch
+    torch.cuda.empty_cache()
+
+    # 9a-9d. one fetch per stretch, det add, out of core, the memory tiers
+    t0 = time.perf_counter()
+    loop_rows = fetch_phase(torch, np, tc, gen_mod, eng, fr, dl, bfs, sssp, g, source)
+    print(f"9a: {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    det_phase(torch, np, tc, gen_mod, ops, pagerank, bc, g, gsym, source)
+    print(f"9b: {time.perf_counter() - t0} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    shard_rows, ooc_relax = ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc,
+                                      pagerank, g, gsym, source, rng)
+    relax_rows += shard_rows
+    print(f"9c: {time.perf_counter() - t0} s, peak device bytes "
+          f"{torch.cuda.max_memory_allocated()}", flush=True)
+    memtier_phase(memtier)
+    del (g, gsym, kg, kg_unw, kgsym, main_runs, cuda_runs, torch_runs, kw, mask)
     torch.cuda.empty_cache()
 
     # 10. flash attention, spmm_bsr and embedding_bag at full width, each
@@ -1655,6 +2144,7 @@ def main() -> int:
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,
                                                 layer_launches, bench_launches))
              for k in bench_launches}
+    total["edge_relax"] += ooc_relax
     src_file = "src/repro_torch/kernels/graph_ops/csrc/graph_ops.cu"
     main_relax, main_adv, main_inter = relax_rows[0], adv_rows[1], inter_rows[0]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1685,6 +2175,12 @@ def main() -> int:
               "src/repro/kernels/embedding_bag/embedding_bag.py:25",
               max(r["max_abs_err"] for r in eb_rows), eb_rows[0]),
     ]
+    # no TPU kernel: the graph that replaces the reference's stretch
+    # while_loop; its graph launches on the main path (phase 6)
+    print(json.dumps({"device_loop": dict(
+        source="src/repro_torch/kernels/device_loop/csrc/device_loop.cu",
+        replaces="src/repro/core/engine.py:425 (lax.while_loop of _sparse_stretch)",
+        launches=loop_launches, **loop_rows[0])}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

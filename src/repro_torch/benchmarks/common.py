@@ -32,18 +32,22 @@ def time_call(fn: Callable, *args, warmup: int = 1, iters: int = 3) -> float:
     return float(np.median(ts))
 
 
-def row(name: str, us: float, derived: str = "") -> tuple:
-    """One benchmark row: name, wall time in microseconds, derived counters."""
-    return (name, us, derived)
+def row(name: str, us: float, derived: str = "", stats: dict | None = None) -> tuple:
+    """One benchmark row: name, wall time in microseconds, derived counters
+    and, where a run has them, its stats (``RunStats.as_dict()`` and the
+    like) for ``--emit-json``; the CSV printer leaves them out."""
+    return (name, us, derived, stats)
 
 
 def print_rows(rows):
-    for name, us, derived in rows:
+    for name, us, derived, _ in rows:
         print(f"{name},{us:.1f},{derived}")
 
 
 def rows_as_json(suite: str, rows) -> dict:
-    """JSON document for ``--emit-json``: every row's name, wall time and
-    derived counters."""
-    return {"suite": suite, "rows": [{"name": name, "us_per_call": us, "derived": derived}
-                                     for name, us, derived in rows]}
+    """JSON document for ``--emit-json``: every row's name, wall time,
+    derived counters and stats (where the row has them)."""
+    return {"suite": suite, "rows": [
+        {"name": name, "us_per_call": us, "derived": derived,
+         **({"stats": stats} if stats is not None else {})}
+        for name, us, derived, stats in rows]}

@@ -28,7 +28,7 @@ import torch
 
 from .. import operators as ops
 from ..engine import RunStats
-from ..graph import Graph
+from ..graph import Graph, set_at
 
 INF = torch.finfo(torch.float32).max / 4
 
@@ -38,9 +38,9 @@ def brandes_forward(g: Graph, src: int, max_rounds: int = 100_000):
     the deepest discovered level + 1 (the number of forward rounds)."""
     zeros = torch.zeros((g.n_pad,), dtype=torch.float32, device=g.device)
     dist = torch.full((g.n_pad,), INF, dtype=torch.float32, device=g.device)
-    dist[src] = 0.0
+    set_at(dist, src, 0.0)
     sigma = zeros.clone()
-    sigma[src] = 1.0
+    set_at(sigma, src, 1.0)
     lvl, changed = 0, True
     while changed and lvl < max_rounds:
         lvlf = float(lvl)
@@ -70,7 +70,7 @@ def bc_brandes(g: Graph, src: int, max_rounds: int = 100_000):
                              use_weight=False, reverse=True)
         delta = delta + torch.where(dist == lvlf, sigma * inc, 0.0)
     bc = delta.clone()
-    bc[src] = 0.0
+    set_at(bc, src, 0.0)
 
     # each forward round is two full-edge relaxes (discovery min + sigma
     # add), each backward round one reversed relax

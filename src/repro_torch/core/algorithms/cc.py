@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import operators as ops
-from ..engine import RunStats, SparseLadderEngine, run_dense
+from ..engine import RunStats, SparseLadderEngine, run_dense, run_host
 from ..graph import Graph
 
 
@@ -81,8 +81,9 @@ def cc_pointer_jump(g: Graph, max_rounds: int = 10_000):
         jumped = full_jump(hooked)
         return jumped, torch.any(jumped != par)
 
-    rounds, (par, _) = run_dense(step, (_init_labels(g), True),
-                                 lambda s: s[1], max_rounds)
+    # the full jump reads the device every pass: eager rounds
+    rounds, (par, _) = run_host(step, (_init_labels(g), True),
+                                lambda s: s[1], max_rounds)
     return par, RunStats.from_graph(g, rounds=rounds,
                                     edges_touched=rounds * g.m,
                                     dense_rounds=rounds)

@@ -12,17 +12,15 @@ from __future__ import annotations
 import torch
 
 from .. import operators as ops
-from ..engine import RunStats, SparseLadderEngine, run_dense
-from ..graph import Graph
+from ..engine import RunStats, SparseLadderEngine, run_dense, run_host
+from ..graph import Graph, set_at
 from .bfs import _source_mask
 
 INF = torch.finfo(torch.float32).max / 4
 
 
 def _init_dist(g: Graph, src: int):
-    dist = g.vertex_full(INF, torch.float32)
-    dist[src] = 0.0
-    return dist
+    return set_at(g.vertex_full(INF, torch.float32), src, 0.0)
 
 
 def _dense_stats(g, rounds) -> RunStats:
@@ -121,7 +119,8 @@ def sssp_delta(g: Graph, src: int, delta: float = 4.0,
         return torch.any(pending & (dist < INF))
 
     bidx0 = torch.zeros((), dtype=torch.int32, device=g.device)
-    rounds, (dist, _, _, inner_total) = run_dense(
+    # the bucket drain reads the device every inner round: eager rounds
+    rounds, (dist, _, _, inner_total) = run_host(
         outer_body, (_init_dist(g, src), _source_mask(g, src), bidx0, 0),
         outer_cond, max_outer)
     return dist, RunStats.from_graph(g, rounds=rounds,

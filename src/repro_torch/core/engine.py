@@ -1,36 +1,56 @@
 """Round-execution engines.
 
-The two regimes of ``repro.core.engine``:
+The regimes of ``repro.core.engine``, with one blocking device-to-host read
+per stretch, as the reference's ``jax.device_get`` makes it:
 
-* ``run_dense`` — ``state = step(state)`` while ``cond(state)``.  torch
-  runs eagerly, so this is a Python loop with one blocking fetch of the
-  condition per round (the reference fuses it into one ``while_loop``).
+* ``fetch`` — the engine's only blocking read of the device: every tensor
+  it is given comes back in one transfer.  ``fetch.calls`` counts them.
+
+* ``run_dense`` — ``state = step(state)`` while ``cond(state)``: one device
+  loop (``kernels.device_loop.do_while``: on the card a captured round
+  replayed by a CUDA graph's WHILE node, on the CPU a Python loop), and one
+  fetch of its round count at the end.  ``run_host`` is the eager loop with
+  one fetch of ``cond`` per round, for steps that read the device
+  themselves (and the per-round ``fault`` ticks of the out-of-core path).
 
 * ``SparseLadderEngine`` — data-driven rounds over sparse worklists along a
   (capacity, budget) rung ladder.  ``fused=True`` runs *stretches* of
-  consecutive same-rung rounds: each stretch is a do-while loop that, after
-  every round, evaluates the band predicate (``frontier.sparse_band`` /
-  ``dense_band``) on the device and fetches it once, exiting the moment
-  the host dispatcher would pick another rung or regime.  ``fused=False``
-  dispatches one round at a time from the fetched ladder scalars.  Both
-  produce the reference's labels and the reference's ``RunStats`` counters
-  (``rounds``, ``sparse_rounds``, ``dense_rounds``, ``edges_touched``,
-  ``compiles`` as distinct stretch keys, ``overflow_escalations``).  A
-  stretch still fetches once per round here; capturing a rung round in a
-  CUDA graph to restore the reference's one fetch per stretch is queued in
-  ROADMAP.md.
+  consecutive same-rung rounds, each one device do-while loop that
+  re-derives after every round, on the device, whether the host dispatcher
+  would keep this rung (``frontier.sparse_band`` / ``dense_band``).  The
+  host then makes one fetch per stretch: the stretch's round count (and
+  dense mass) together with the next round's ladder scalars.
+  ``fused=False`` dispatches one round at a time, one fetch a round.  Both
+  produce the reference's labels and ``RunStats`` counters (``rounds``,
+  ``sparse_rounds``, ``dense_rounds``, ``edges_touched``, ``compiles`` as
+  distinct stretch keys, ``overflow_escalations``).  On the card every
+  stretch of one rung replays one captured round, in this run and in later
+  runs on the same graph: each graph keeps its last ``RUNG_LOOPS`` rung
+  loops, freed with it.
 
-Out-of-core streaming (``run_streamed``), checkpointing and fault
-injection belong to later slices of the port.
+* ``run_streamed`` — the out-of-core runner for a ``tiered.TieredGraph``:
+  each trip fetches ``(cond, frontier_count, live_shard_mask)`` (plus an
+  in-flight stretch's round count) in one transfer; a live shard set that
+  fits the buffer pool is staged once and its rounds run as one device
+  loop (``_staged_stretch``), which exits when the live set changes.
+  ``SparseLadderEngine`` hands tiered graphs to it.
+
+Run checkpointing (the reference's ``RunCheckpointer``, ``resume_run``) is
+ROADMAP queue 1, item 8: resume: ``run_host`` and ``run_streamed`` raise when given
+a ``checkpointer``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from typing import Callable
 
+import numpy as np
 import torch
 
+from ..kernels.device_loop import StretchGraphs, do_while
 from . import frontier as fr
 from . import operators as ops
 from .graph import Graph
@@ -51,7 +71,9 @@ class RunStats:
     comm_elems: int = 0
     comm_bytes: int = 0
     reduce_axis_hops: int = 0
-    # host→device streaming of the out-of-core path (zero when resident)
+    # host→device streaming of the out-of-core path (zero when resident):
+    # every miss copies one padded shard, so h2d_bytes == shards_streamed *
+    # g.shard_bytes exactly
     h2d_bytes: int = 0
     shards_streamed: int = 0
     buffer_hits: int = 0
@@ -63,7 +85,7 @@ class RunStats:
     pull_rounds: int = 0
     # concurrent source lanes the run's sweeps were amortized over
     sources: int = 1
-    # execution geometry (1/"local" for an unsharded Graph)
+    # execution geometry (1/"local" for an unsharded Graph, "tiered" out of core)
     ndev: int = 1
     placement: str = "local"
     # what the relaxations ran on: "cuda" only when the kernels launched
@@ -71,81 +93,313 @@ class RunStats:
 
     @classmethod
     def from_graph(cls, g, **kw) -> "RunStats":
-        """Stats for a run on ``g``, with the substrate a relaxation on it
-        runs.  A single resident graph has no communication to charge."""
-        return cls(substrate=ops.run_substrate(g), **kw)
+        """Stats for a run on ``g``: its execution geometry and the
+        substrate a relaxation on it runs."""
+        return cls(substrate=ops.run_substrate(g), ndev=getattr(g, "ndev", 1),
+                   placement=getattr(g, "placement", "local"), **kw)
 
     def as_dict(self):
         return dataclasses.asdict(self)
 
 
+def fetch(*xs):
+    """The twin of ``jax.device_get``: every tensor of ``xs`` comes back to
+    the host in ONE transfer (one blocking sync on the card) — a 0-d
+    tensor as a Python bool, int or float, a 1-d one as a list; other
+    values pass through.  Returns one value, or a tuple for several."""
+    fetch.calls += 1
+    tensors = [x for x in xs if isinstance(x, torch.Tensor)]
+    flat = []
+    if len(tensors) == 1:   # a per-round read: no cast, no concatenation
+        flat = tensors[0].reshape(-1).tolist()
+    elif tensors:
+        wide = (torch.float64 if any(t.is_floating_point() for t in tensors)
+                else torch.int64)
+        flat = torch.cat([t.reshape(-1).to(wide) for t in tensors]).tolist()
+    out, i = [], 0
+    for x in xs:
+        if not isinstance(x, torch.Tensor):
+            out.append(x)
+            continue
+        kind = bool if x.dtype == torch.bool else (
+            float if x.is_floating_point() else int)
+        vals = [kind(v) for v in flat[i:i + x.numel()]]
+        i += x.numel()
+        out.append(vals[0] if x.dim() == 0 else vals)
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+fetch.calls = 0
+
+
+def _as_tensors(state, device):
+    """``state`` with every Python bool, int or float leaf made a 0-d
+    tensor on ``device`` (the device loop carries tensors only)."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(_as_tensors(x, device) for x in state)
+    if isinstance(state, torch.Tensor):
+        return state
+    return torch.full((), state, device=device)
+
+
+def _state_device(state):
+    if isinstance(state, (tuple, list)):
+        for x in state:
+            dev = _state_device(x)
+            if dev is not None:
+                return dev
+        return None
+    return state.device if isinstance(state, torch.Tensor) else None
+
+
 def run_dense(step: Callable, state, cond: Callable, max_rounds: int):
-    """``state = step(state)`` while ``cond(state)``; returns
-    ``(rounds, state)``.  ``cond`` returns a device bool, fetched once per
-    round."""
+    """``state = step(state)`` while ``cond(state)``, as one device loop;
+    returns ``(rounds, state)`` after one fetch of the round count.  The
+    step must not read the device (``run_host`` takes such steps); Python
+    scalars in ``state`` become 0-d tensors."""
+    state = _as_tensors(state, _state_device(state))
+
+    def one_round(s):
+        s = step(s)
+        return s, cond(s)
+
+    with StretchGraphs() as graphs:
+        state, k = do_while(one_round, state, max_rounds, enter=cond(state),
+                            graphs=graphs)
+        k = fetch(k)
+        graphs.settle(k)
+        return k, state
+
+
+def run_host(step: Callable, state, cond: Callable, max_rounds: int,
+             checkpointer=None, fault=None):
+    """Eager counterpart of ``run_dense``: one fetch of ``cond`` per round.
+    It runs steps that read the device themselves (``sssp_delta``'s bucket
+    drain, ``cc_pointer_jump``'s jumps, ``bfs_dirop``'s direction switch)
+    and the tiered graphs' rounds that walk the host's buffer pool
+    (``pr_pull`` over a streamed CSC mirror).  ``fault`` (a
+    ``core.faultio.FaultInjector``) ticks its ``"round"`` site before each
+    round, so a drill can delay or kill a run at an exact round.  Same
+    ``(rounds, state)`` contract as ``run_dense``."""
+    if checkpointer is not None:
+        raise NotImplementedError(
+            "run checkpointing is not ported yet (ROADMAP queue 1, item 8: resume)")
     rounds = 0
-    while rounds < max_rounds and bool(cond(state)):
+    while rounds < max_rounds and fetch(cond(state)):
+        if fault is not None:
+            fault.tick("round", key=rounds)
         state = step(state)
         rounds += 1
     return rounds, state
 
 
-def run_host(step: Callable, state, cond: Callable, max_rounds: int):
-    """Eager round loop with one blocking ``cond`` fetch per round — the
-    reference's runner for graphs whose step cannot be traced.  Same
-    ``(rounds, state)`` contract as ``run_dense`` (checkpointing and fault
-    injection come with the out-of-core slice)."""
-    return run_dense(step, state, cond, max_rounds)
+# ---------------------------------------------------------------------------
+# Streamed execution (out-of-core tiered graphs)
+# ---------------------------------------------------------------------------
 
 
-def _sparse_stretch(g, labels, mask, limit, *, step, capacity, budget,
-                    lo_cap, lo_budget, cutoff):
-    """Consecutive (capacity, budget)-rung sparse rounds, do-while: the
+def _staged_stretch(sg, state, limit, *, step, cond, active, graphs):
+    """Consecutive rounds over a pre-staged live shard set
+    (``tiered.StagedShards``) as one device do-while loop — the streamed
+    twin of ``_sparse_stretch`` / ``_dense_stretch``.  The band is live-set
+    stability (``frontier.live_stable``): a round follows while the
+    frontier is alive and its live-shard set still equals the staged set,
+    so the loop exits the moment the host scheduler would stream another
+    schedule.  Returns ``(state, rounds)``; the caller fetches the count
+    with the next trip's scalars."""
+
+    def one_round(st):
+        st = step(sg, st)
+        return st, cond(st) & fr.live_stable(sg, active(sg, st))
+
+    return do_while(one_round, state, limit, graphs=graphs)
+
+
+@functools.lru_cache(maxsize=None)
+def _streamed_step_for(dense_fn):
+    """Adapt an engine ``(g, labels, mask) -> (labels, mask)`` dense step
+    to ``run_streamed``'s ``(g, state) -> state`` shape, one adapter per
+    step."""
+    def step(gr, state):
+        labels, mask = state
+        return dense_fn(gr, labels, mask)
+    return step
+
+
+def _mask_cond(state):
+    """Termination for (labels, mask) streamed states: frontier alive."""
+    return torch.any(state[1])
+
+
+def _mask_active(gr, state):
+    """Schedule mask for (labels, mask) streamed states."""
+    return state[1]
+
+
+def run_streamed(
+    g,
+    step: Callable,    # (graph_or_staged, state) -> state
+    state,
+    cond: Callable,    # (state,) -> device bool
+    active: Callable,  # (graph_or_staged, state) -> (n_pad,) bool mask
+    max_rounds: int,
+    *,
+    checkpointer=None,
+    fused: bool = True,
+    on_rounds: Callable = None,  # (k, live) host callback per retired batch
+):
+    """Runner for a ``tiered.TieredGraph``: frontier-driven shard
+    streaming, with device loops over stable live shard sets.
+
+    Each trip fetches ``(cond, frontier_count, live_shard_mask)`` in ONE
+    transfer.  When ``fused`` and the live set fits the buffer pool, the
+    set is staged (``g.stage``) and the next rounds run as one
+    ``_staged_stretch``, whose round count rides back with the next trip's
+    scalars: a stretch costs the single fetch an eager round does.  Rounds
+    whose live set outgrows the pool run eager, one round a trip, as does
+    the whole run when a fault injector is attached (its ``"round"`` ticks)
+    or ``fused=False``.  Labels are bitwise identical across the regimes:
+    a staged stretch folds the same shards in the same ascending order as
+    the eager rounds it replaces.
+
+    ``on_rounds(k, live)`` reports every retired batch of ``k`` rounds
+    that all ran over schedule ``live``.  Returns ``(rounds, state)``."""
+    if checkpointer is not None:
+        raise NotImplementedError(
+            "run checkpointing is not ported yet (ROADMAP queue 1, item 8: resume)")
+    state = _as_tensors(state, g.device)
+    fault = g.fault
+    use_fused = fused and fault is None
+    rnd = 0
+
+    def settle(k, live):
+        nonlocal rnd
+        graphs.settle(k)
+        g.charge_staged_rounds(k, live)
+        if on_rounds is not None:
+            on_rounds(k, live)
+        rnd += k
+
+    pending = None  # (rounds run, live) of the stretch in flight
+    with StretchGraphs() as graphs:
+        while rnd < max_rounds:
+            count, live = g.round_live(active(g, state))
+            if pending is None:
+                go, count, live = fetch(cond(state), count, live)
+            else:
+                # ONE blocking fetch settles the in-flight stretch AND
+                # picks the next schedule
+                go, count, live, k = fetch(cond(state), count, live, pending[0])
+                settle(k, pending[1])
+                pending = None
+                if rnd >= max_rounds:
+                    break
+            if not go or count == 0:
+                break
+            live = np.asarray(live, dtype=bool)
+            sg = g.stage(live) if use_fused else None
+            if sg is None:
+                if fault is not None:
+                    fault.tick("round", key=rnd)
+                g.set_live_hint(live)
+                state = step(g, state)
+                rnd += 1
+                if on_rounds is not None:
+                    on_rounds(1, live)
+            else:
+                state, k_dev = _staged_stretch(
+                    sg, state, max_rounds - rnd, step=step, cond=cond,
+                    active=active, graphs=graphs)
+                pending = (k_dev, live)
+        if pending is not None:
+            settle(fetch(pending[0]), pending[1])
+    return rnd, state
+
+
+# ---------------------------------------------------------------------------
+# Rung stretches
+# ---------------------------------------------------------------------------
+
+
+def _sparse_round(g, *, step, capacity, budget, lo_cap, lo_budget, cutoff):
+    """One (capacity, budget)-rung sparse round over ``(labels, mask,
+    scalars)``, and the band predicate of the round after it: the body of
+    ``_sparse_stretch``'s loop.  (A single partition never escalates a
+    shard, so the step's escalation count is always 0.)"""
+
+    def one_round(st):
+        labels, mask, _ = st
+        labels, mask, _ = step(g, labels, mask, capacity=capacity, budget=budget)
+        sc = fr.round_scalars(g, mask)
+        return (labels, mask, sc), fr.sparse_band(sc, capacity, lo_cap, budget,
+                                                  lo_budget, cutoff)
+
+    return one_round
+
+
+def _sparse_stretch(g, labels, mask, scalars, limit, *, graphs, key, **rung):
+    """Consecutive same-rung sparse rounds as one device do-while loop: the
     first round always runs, later ones while the band predicate holds.
     Returns ``(labels, mask, scalars, rounds)``; ``scalars`` describe the
-    next round.  (A single partition never escalates a shard, so the
-    step's escalation count is always 0.)"""
-    k = 0
-    while True:
-        labels, mask, _ = step(g, labels, mask, capacity=capacity,
-                               budget=budget)
-        k += 1
-        scalars = fr.round_scalars(g, mask)
-        if k >= limit or not bool(fr.sparse_band(
-                scalars, capacity, lo_cap, budget, lo_budget, cutoff)):
-            return labels, mask, scalars, k
+    next round."""
+    (labels, mask, scalars), k = do_while(_sparse_round(g, **rung),
+                                          (labels, mask, scalars), limit,
+                                          graphs=graphs, key=key)
+    return labels, mask, scalars, k
 
 
-def _dense_stretch(g, labels, mask, scalars, limit, *, step, cutoff,
-                   count_mass):
-    """Consecutive dense-fallback rounds, do-while, from the entry
-    ``scalars`` of the first round.  Returns ``(labels, mask, scalars,
-    rounds, mass)``: with ``count_mass``, ``mass`` is the sum of every
-    round's entry frontier edge mass (``scalars[3]``), kept on the device
-    in int64 and fetched once (``dense_cost="mass"``); else it is 0 and
-    nothing more is computed or fetched."""
-    k = 0
-    mass = (torch.zeros((), dtype=torch.int64, device=mask.device)
-            if count_mass else None)
-    while True:
+def _dense_stretch(g, labels, mask, scalars, limit, *, step, cutoff, count_mass,
+                   graphs, key):
+    """Consecutive dense-fallback rounds as one device do-while loop, from
+    the entry ``scalars`` of the first round.  Returns ``(labels, mask,
+    scalars, rounds, mass)``: with ``count_mass``, ``mass`` is the int64
+    sum of every round's entry frontier edge mass (``scalars[3]``,
+    ``dense_cost="mass"``), else 0 and nothing more is computed."""
+
+    def one_round(st):
+        labels, mask, sc, mass = st
         if count_mass:
-            mass += scalars[3]
+            mass = mass + sc[3]
         labels, mask = step(g, labels, mask)
-        k += 1
-        scalars = fr.round_scalars(g, mask)
-        if k >= limit or not bool(fr.dense_band(scalars, cutoff)):
-            return labels, mask, scalars, k, int(mass) if count_mass else 0
+        sc = fr.round_scalars(g, mask)
+        return (labels, mask, sc, mass), fr.dense_band(sc, cutoff)
+
+    mass = torch.zeros((), dtype=torch.int64, device=mask.device)
+    (labels, mask, scalars, mass), k = do_while(
+        one_round, (labels, mask, scalars, mass), limit, graphs=graphs, key=key)
+    return labels, mask, scalars, k, (mass if count_mass else 0)
+
+
+# rung loops kept per graph (a run on the web graph asks for about 8 per
+# substrate); the least recently launched one past this count is freed
+RUNG_LOOPS = 32
+_RUNG_GRAPHS: dict = {}   # id(graph) -> its StretchGraphs
+
+
+def _drop_rung_graphs(key) -> None:
+    _RUNG_GRAPHS.pop(key).close()
+
+
+def _rung_graphs(g) -> StretchGraphs:
+    """The rung loops of ``g``'s fused ladder runs: kept across runs and
+    freed with ``g`` (not at interpreter exit, which frees everything)."""
+    graphs = _RUNG_GRAPHS.get(id(g))
+    if graphs is None:
+        graphs = _RUNG_GRAPHS[id(g)] = StretchGraphs(max_loops=RUNG_LOOPS)
+        weakref.finalize(g, _drop_rung_graphs, id(g)).atexit = False
+    return graphs
 
 
 class SparseLadderEngine:
     """Dispatches rung stretches along a (capacity, budget) ladder
-    (``fused=False`` dispatches one round at a time).  A sparse round
-    charges its budget to ``edges_touched``; a dense round charges m
-    (``dense_cost="m"``) or its entry frontier's edge mass
-    (``dense_cost="mass"``, the peel-style work convention).  ``labels``
-    may be any object the steps thread through (kcore passes an
-    ``(alive, degree)`` pair); ``mask`` is the (n_pad,) bool frontier.
-    Both ladders are geometric with base 4, the reference's default."""
+    (``fused=False`` dispatches one round at a time; a tiered graph goes
+    to ``run_streamed``).  A sparse round charges its budget to
+    ``edges_touched``; a dense round charges m (``dense_cost="m"``) or its
+    entry frontier's edge mass (``dense_cost="mass"``, the peel-style work
+    convention).  ``labels`` may be any tensor tree the steps thread
+    through (kcore passes an ``(alive, degree)`` pair); ``mask`` is the
+    (n_pad,) bool frontier.  Both ladders are geometric with base 4, the
+    reference's default."""
 
     def __init__(
         self,
@@ -172,9 +426,35 @@ class SparseLadderEngine:
 
     def run(self, labels, mask, max_rounds: int = 10_000):
         self.stats.substrate = ops.run_substrate(self.g)
+        if getattr(self.g, "is_tiered", False):
+            return self._run_streamed(labels, mask, max_rounds)
         if self.fused:
-            return self._run_fused(labels, mask, max_rounds)
+            return self._run_fused(labels, mask, max_rounds, _rung_graphs(self.g))
         return self._run_per_round(labels, mask, max_rounds)
+
+    def _run_streamed(self, labels, mask, max_rounds: int):
+        """Streamed dispatch for a ``tiered.TieredGraph`` through
+        ``run_streamed``.  Rounds that leave shards idle count as sparse,
+        rounds touching every shard as dense (a stretch's rounds share one
+        schedule, so the classification is per-round exact); the stream
+        counters' deltas fold into ``h2d_bytes`` / ``shards_streamed`` /
+        ``buffer_hits`` / ``edges_touched`` at the end."""
+        g = self.g
+        io0 = g.io.snapshot()
+
+        def on_rounds(k, live):
+            self.stats.rounds += k
+            if int(live.sum()) < g.nshards:
+                self.stats.sparse_rounds += k
+            else:
+                self.stats.dense_rounds += k
+
+        _, (labels, mask) = run_streamed(
+            g, _streamed_step_for(self._dense_fn), (labels, mask),
+            _mask_cond, _mask_active, max_rounds, fused=self.fused,
+            on_rounds=on_rounds)
+        g.io.fold_delta(self.stats, io0)
+        return labels, mask
 
     def _note(self, keys: set, key):
         """``compiles`` counts the distinct rung executables a run asks for
@@ -208,41 +488,53 @@ class SparseLadderEngine:
             self.stats.overflow_escalations += 1
         return cap, budget, mass_med > self.sparse_cutoff or overflow
 
-    def _run_fused(self, labels, mask, max_rounds: int):
+    def _run_fused(self, labels, mask, max_rounds: int, graphs):
         g = self.g
-        key_mode = (ops.get_substrate(), ops.get_deterministic_add())
+        # a rung loop outlives the run: its key names the steps it captured
+        key_mode = (self._sparse_fn, self._dense_fn, self.dense_cost,
+                    ops.get_substrate(), ops.get_deterministic_add())
         scalars = fr.round_scalars(g, mask)
         rounds_left = max_rounds
-        while rounds_left > 0:
-            count, cap_need, mass_med, _ = scalars.tolist()
-            if count == 0:
+        pending = None  # (budget or None, rounds, mass) of the stretch in flight
+        while True:
+            # ONE blocking fetch per stretch: the stretch's counters and the
+            # next round's ladder scalars in a single transfer
+            if pending is None:
+                sc = fetch(scalars)
+            else:
+                sc, k, mass = fetch(scalars, pending[1], pending[2])
+                graphs.settle(k)
+                self._settle(pending[0], k, mass)
+                rounds_left -= k
+                pending = None
+            count, cap_need, mass_med, _ = sc
+            if count == 0 or rounds_left <= 0:
                 break
             cap, budget, dense = self._pick(cap_need, mass_med)
             if dense:
-                self._note(self._stretch_keys, ("dense", *key_mode))
+                key = ("dense", *key_mode)
+                self._note(self._stretch_keys, key)
                 labels, mask, scalars, k, mass = _dense_stretch(
                     g, labels, mask, scalars, rounds_left,
                     step=self._dense_fn, cutoff=self.sparse_cutoff,
-                    count_mass=self.dense_cost == "mass")
-                self._settle(None, k, mass)
+                    count_mass=self.dense_cost == "mass", graphs=graphs, key=key)
+                pending = (None, k, mass)
             else:
-                self._note(self._stretch_keys,
-                           ("sparse", cap, budget, *key_mode))
+                key = ("sparse", cap, budget, *key_mode)
+                self._note(self._stretch_keys, key)
                 labels, mask, scalars, k = _sparse_stretch(
-                    g, labels, mask, rounds_left, step=self._sparse_fn,
+                    g, labels, mask, scalars, rounds_left, step=self._sparse_fn,
                     capacity=cap, budget=budget,
                     lo_cap=fr.ladder_below(cap, self.cap_ladder),
                     lo_budget=fr.ladder_below(budget, self.budget_ladder),
-                    cutoff=self.sparse_cutoff)
-                self._settle(budget, k)
-            rounds_left -= k
+                    cutoff=self.sparse_cutoff, graphs=graphs, key=key)
+                pending = (budget, k, 0)
         return labels, mask
 
     def _run_per_round(self, labels, mask, max_rounds: int):
         g = self.g
         for _ in range(max_rounds):
-            count, cap_need, mass_med, mass_tot = fr.round_scalars(
-                g, mask).tolist()
+            count, cap_need, mass_med, mass_tot = fetch(fr.round_scalars(g, mask))
             if count == 0:
                 break
             cap, budget, dense = self._pick(cap_need, mass_med)

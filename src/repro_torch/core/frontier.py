@@ -6,7 +6,8 @@ of vertex indices plus a ``count`` that may exceed it (overflow).
 Capacities come from a geometric ladder, so a run uses few distinct
 shapes.  ``compact`` builds the worklist on the device without a host
 sync; the band predicates re-derive on the device the rung decision the
-host dispatcher makes.
+host dispatcher makes (``live_stable`` the shard schedule of a streamed
+stretch).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from .graph import Graph
+from .graph import Graph, set_at
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +65,7 @@ def dense_from_indices(indices, n_pad: int, device=None) -> DenseFrontier:
     idx = torch.as_tensor(indices, device=device).long()
     mask = torch.zeros((n_pad,), dtype=torch.bool, device=idx.device)
     mask[idx] = True
-    mask[n_pad - 1] = False  # never activate the sentinel
+    set_at(mask, n_pad - 1, False)  # never activate the sentinel
     return DenseFrontier(mask=mask)
 
 
@@ -76,8 +77,7 @@ def compact(mask: torch.Tensor, capacity: int, sentinel: int) -> SparseFrontier:
     from a cumsum rank and one scatter, so no host sync: the buffer has a
     spare slot per vertex past ``capacity`` that absorbs it when inactive
     or truncated, so no two writes meet."""
-    mask = mask.clone()
-    mask[sentinel] = False
+    mask = set_at(mask.clone(), sentinel, False)
     flags = mask.to(torch.int32)
     count = flags.sum(dtype=torch.int32)
     rank = torch.cumsum(flags, 0, dtype=torch.int32) - 1
@@ -143,3 +143,13 @@ def dense_band(scalars, sparse_cutoff: int) -> torch.Tensor:
     fallback: frontier alive and median mass above the sparse cutoff."""
     count, _, mass_med, _ = scalars
     return (count > 0) & (mass_med > sparse_cutoff)
+
+
+def live_stable(sg, mask: torch.Tensor) -> torch.Tensor:
+    """Band predicate of the streamed stretch (``engine._staged_stretch``):
+    True while ``mask``'s live-shard set still equals the set ``sg`` (a
+    ``tiered.StagedShards``) was staged for — the device-side re-derivation
+    of the host scheduler's decision, as ``sparse_band`` / ``dense_band``
+    re-derive the ladder's."""
+    _, live = sg.round_live(mask)
+    return torch.all(live == sg.live)

@@ -45,6 +45,15 @@ def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
     return out
 
 
+def set_at(t: torch.Tensor, i: int, value) -> torch.Tensor:
+    """``t[i] = value`` as a fill of a one-element view: a kernel on the
+    device, where ``t[i] = value`` copies a host scalar over (a blocking
+    copy, which a CUDA graph capture refuses).  Returns ``t``."""
+    i %= t.shape[0]
+    t[i:i + 1].fill_(value)
+    return t
+
+
 def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 

@@ -27,8 +27,12 @@ Select with ``set_substrate`` / ``substrate_scope`` or per call with
 through the fixed-order ``det_scatter_add`` (plain torch) on both
 substrates, so float sums are bitwise reproducible.
 
-The tiered, sharded and batched branches belong to later slices of the
-port; they raise ``NotImplementedError``.
+On an out-of-core graph (``core/tiered.py``: a ``TieredGraph``, or the
+``StagedShards`` of a streamed stretch) ``push_dense`` and ``pull_dense``
+stream the shards the mask needs through the device buffer pool, and
+``sparse_round`` lowers to that masked push: the schedule already is the
+frontier's shard set.  The sharded and batched branches belong to later
+slices of the port; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ..kernels import graph_ops as gk
 from ..kernels.graph_ops import neutral_for, scatter_reduce  # noqa: F401 (re-export)
 from . import frontier as fr
 from .frontier import SparseFrontier
-from .graph import Graph
+from .graph import Graph, set_at
 
 SUBSTRATES = ("torch", "cuda")
 DEFAULT_SUBSTRATE = "cuda"
@@ -110,10 +114,14 @@ def deterministic_add_scope(on: bool = True):
 
 
 def _single_graph(g, what: str):
+    if getattr(g, "is_tiered", False):
+        raise NotImplementedError(
+            f"{what} has no out-of-core branch: on a tiered graph only "
+            "push_dense, pull_dense and sparse_round stream shards")
     if not isinstance(g, Graph):
         raise NotImplementedError(
-            f"{what} on tiered or sharded graphs is not ported yet "
-            "(ROADMAP queue 1: out-of-core, multi-device)")
+            f"{what} on sharded graphs is not ported yet "
+            "(ROADMAP queue 1, item 11: the multi-device path)")
 
 
 def push_dense(
@@ -129,6 +137,12 @@ def push_dense(
     """Relax every edge whose source is active.  ``reverse=True`` pushes
     along the reversed edges (gather at dst, scatter into src)."""
     sub = _resolve(substrate)
+    tiered = getattr(g, "tiered_push_dense", None)
+    if tiered is not None:
+        # out of core: stream the shards the mask touches, folded in
+        # ascending shard order (pool-size independent)
+        return tiered(src_val, active, out_init, kind, use_weight, sub,
+                      reverse=reverse, det=kind == "add" and _deterministic_add)
     _single_graph(g, "push_dense")
     s, d = (g.col_idx, g.src_idx) if reverse else (g.src_idx, g.col_idx)
     if kind == "add" and _deterministic_add:
@@ -155,6 +169,16 @@ def pull_dense(
     """Pull-style relax over in-edges: each vertex reduces over its
     in-neighbours.  Requires CSC."""
     sub = _resolve(substrate)
+    tiered = getattr(g, "tiered_pull_dense", None)
+    if tiered is not None:
+        # out of core: stream the CSC mirror's shards (raises without one)
+        return tiered(src_val, active, out_init, kind, use_weight, sub,
+                      det=kind == "add" and _deterministic_add)
+    if getattr(g, "is_tiered", False):
+        raise NotImplementedError(
+            "this tiered container holds only staged out-edge shards; "
+            "pull runs on the TieredGraph itself (eager rounds), not "
+            "inside a staged stretch")
     _single_graph(g, "pull_dense")
     if not g.has_csc:
         raise ValueError("pull_dense requires build_csc=True")
@@ -288,8 +312,13 @@ def sparse_round(
     substrate: str | None = None,
 ):
     """One data-driven round: compact → advance → relax.  Returns
-    ``(new_out, escalated_shards)``; the count is 0 on a single partition."""
+    ``(new_out, escalated_shards)``; the count is 0 on a single partition.
+    On a tiered graph the round is the masked push over the frontier's
+    shards: the shards never fetched are the saving, and a worklist would
+    buy nothing more."""
     sub = _resolve(substrate)
+    if getattr(g, "is_tiered", False):
+        return push_dense(g, src_val, mask, out_init, kind, use_weight, sub), 0
     _single_graph(g, "sparse_round")
     f = fr.compact(mask, capacity, g.sentinel)
     batch = advance_sparse(g, f, budget, sub)
@@ -312,6 +341,4 @@ def direction_choice(
 
 
 def updated_mask(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    m = new != old
-    m[-1] = False  # sentinel never activates
-    return m
+    return set_at(new != old, -1, False)  # sentinel never activates

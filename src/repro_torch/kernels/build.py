@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
 
 # (argtypes, restype) of every exported launch function, keyed by library
 # (source stem); pointers and the stream are c_void_p so ctypes never cuts
@@ -56,6 +57,12 @@ SIGNATURES = {
         # nch, stream
         "graph_ops_intersect": ([_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P], _I),
         "graph_ops_intersect_scratch": ([_LL, _I], _LL),   # e, dmax
+    },
+    "device_loop": {
+        # body graph, k, limit, go, exec out
+        "device_loop_build": ([_P, _P, _P, _P, _PP], _I),
+        "device_loop_launch": ([_P, _P], _I),   # exec, stream
+        "device_loop_destroy": ([_P], _I),      # exec
     },
     "embedding_bag": {
         # ids, weights, table, out, B, L, V, D, table dtype, vector bytes, stream

@@ -1,13 +1,17 @@
 """Wall times of the quickstart main path on one CUDA card, repeated.
 
     python3 src/repro_torch/tools/time_main_path.py [--src DIR] [--repeat 8]
+        [--path-only]
 
 Builds the graphs of ``chip_smoke.py``'s main path
 (``web_crawl_like(512, 13, 16, 3)`` with random weights as CSR+CSC, and
-its symmetrized twin), runs each algorithm of that path once to warm up,
-then ``--repeat`` more times in the same order under the "cuda" substrate,
-and prints every synchronised wall time with their min, median and max as
-one JSON line.  ``--src`` picks the source tree whose ``repro_torch`` is
+its symmetrized twin), runs each algorithm of that path once to warm up
+(its wall is printed as ``first_ms``: on a tree with rung loops, the run
+that captures them), then ``--repeat`` more times in the same order under
+the "cuda" substrate, and prints every synchronised wall time with their
+min, median and max as one JSON line; on a tree with the device loop,
+``captures`` gives each algorithm's captures and their host ms in the
+warm-up run, and its captures in the repeats.  ``--path-only`` stops there.  ``--src`` picks the source tree whose ``repro_torch`` is
 timed (default: this checkout's ``src``), so that two commits can be
 compared on one card in one call: parent, change, change, parent.
 
@@ -47,6 +51,8 @@ def main() -> int:
                     help="directory that holds the repro_torch to time")
     ap.add_argument("--repeat", type=int, default=8)
     ap.add_argument("--communities", type=int, default=512)
+    ap.add_argument("--path-only", action="store_true",
+                    help="time the main path only")
     args = ap.parse_args()
 
     import torch
@@ -85,21 +91,41 @@ def main() -> int:
         "pr_push": lambda: pagerank.pr_push(gsym),
         "pr_pull": lambda: pagerank.pr_pull(gsym),
     }
+    try:
+        from repro_torch.kernels.device_loop import do_while
+    except ImportError:   # a tree from before the device loop
+        do_while = None
     walls = {name: [] for name in runs}
+    first = {}
+    captures = {name: [0, 0.0, 0] for name in runs}
     with ops.substrate_scope("cuda"):
         for rep in range(args.repeat + 1):
             for name, fn in runs.items():
+                caps = (do_while.captures, do_while.capture_s) if do_while else (0, 0.0)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                if do_while:
+                    n, sec = do_while.captures - caps[0], do_while.capture_s - caps[1]
+                    if rep:
+                        captures[name][2] += n
+                    else:
+                        captures[name][:2] = [n, sec * 1e3]
                 if rep:
-                    walls[name].append((time.perf_counter() - t0) * 1e3)
+                    walls[name].append(wall)
+                else:
+                    first[name] = wall
     summary = {name: dict(min=min(v), median=statistics.median(v), max=max(v))
                for name, v in walls.items()}
     print(json.dumps({"src": args.src, "card": card, "m": g.m, "sym_m": gsym.m,
-                      "repeat": args.repeat, "wall_ms": walls, "summary": summary}),
+                      "repeat": args.repeat, "first_ms": first, "wall_ms": walls,
+                      "captures": captures if do_while else None,
+                      "summary": summary}),
           flush=True)
+    if args.path_only:
+        return 0
     kruns = {"kcore_dd_sparse(k=64)": lambda: kcore.kcore_dd_sparse(gsym, 64),
              "core_numbers(k_max=64)": lambda: kcore.core_numbers(gsym, 64)}
     with ops.substrate_scope("cuda"):
