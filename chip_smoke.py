@@ -83,7 +83,8 @@ non-zero exit before its last line:
    crosses the most shards (a reversed max and min push of each vertex's
    shard to a fixed point; the hub's reach stays in one shard), each
    streaming more shards than the pool holds, and cc_dd_sparse, pr_push
-   (``OOC_PR_ITERS`` = 20 rounds) and pr_pull on the symmetrized one, every run from an empty pool:
+   (``OOC_PR_ITERS`` = 20 rounds; cc_dd_sparse ``OOC_CC_ROUNDS`` = 50) and pr_pull on the
+   symmetrized one, every run from an empty pool:
    labels bitwise equal to
    the resident runs, ranks within PR_TOL, ``h2d_bytes == shards_streamed
    x shard_bytes``, edges_touched equal for bfs_dirop and pr_pull; pr_push
@@ -94,9 +95,43 @@ non-zero exit before its last line:
    through the store (``save_graph`` under ``build/``, ``open_graph``
    with ``verify="open"``, bfs equal, then a reversed push and a pull
    over every shard through the pinned staging ring, bitwise to the
-   resident relaxes; the store deleted);
+   resident relaxes; the store is kept for 9f);
 9d. the memory tiers on the card (``benchmarks/memtier.py``): HBM copy,
    pinned and pageable H2D, D2H, and 4-byte copy latencies;
+9e. the paper's figure suites (``benchmarks/{frameworks,algo_classes,
+   granularity}.py``) at full width, warm-up 1 and one timed call:
+   frameworks on the web graph and on kron, algo_classes on both, every
+   row printed with its counters and, where phase 6, 8 or 9 ran the same
+   call on the same container, its labels and RunStats equal to that run
+   (pagerank within PR_TOL, bc within BC_TOL, tc by count); on each graph
+   every bfs, sssp and cc row bitwise to algo_classes' dd_sparse, delta
+   and pointer_jump row, and the two k = 4 kcore peels keeping the same
+   vertices; granularity on ``web_crawl_like(64, 13, 16, 3)`` (an eighth
+   of the communities: it builds its graph at three block sizes),
+   distances equal across them;
+9f. resume: the kill drill on 9c's store (``open_graph``): streamed
+   bfs_dd_sparse from the far source at a pool of 2 and det-add pr_push
+   (OOC_PR_ITERS rounds) at a pool of 16, each run uninterrupted here,
+   then in a child process (``--resume-child``, which imports only the
+   port) killed at a quarter of its rounds (``faultio.kill``, exit 7) with
+   a committed snapshot, then in a child that resumes: bitwise equal to
+   the uninterrupted run; then web bfs_dd_sparse on the resident graph
+   stopped half way with a snapshot at each stretch boundary and resumed
+   twice in this process (from the last snapshot, then the one before),
+   bitwise;
+9g. dynamic graphs (``benchmarks/dynamic.py``) on the symmetrized web
+   graph saved at 16 shards and opened with ``open_dynamic``: 6 seeded
+   batches of 65,536 inserts between existing vertices (symmetrized),
+   incremental bfs and cc bitwise to the from-scratch runs after each,
+   pr_incremental's det-add replay over the first batch allclose to
+   scratch (atol scaled to the mean rank 1/n) at a pool of 16 and, cut to
+   DYN_DET_ITERS rounds a solve, bitwise across pools of 16 and 4 (every
+   handle checking its CRCs as shards stream), compaction, the v3 round
+   trip and one batch after compaction: every flag of the suite's rows 1;
+   then, on the store the suite leaves (base and six logs), a cold and a
+   warm pr_incremental under plain float add on both substrates, within
+   PR_TOL (the cuda side's edge_relax over the log shards against the
+   plain push);
 10. the other kernels at full width, each against its plain version on the
    card: bf16 flash attention against ``flash_attention_plain`` and
    ``attention_ref`` within rtol 8e-3 (one bf16 ulp) + 1e-3 x rms(want),
@@ -145,7 +180,9 @@ stretch ``while_loop``) has a line of its own before the kernels line,
 ``{"device_loop": {...}}``: its graph launches on the main path, and 2,000
 rounds of the path's stretch timed through the graph (``ms``) and through
 the plain Python loop (``plain_ms``), with the largest difference of their
-labels (``max_abs_err``).  A kernel's ``launches`` count the rounds a loop
+labels (``max_abs_err``).  A kernel's ``launches`` sum its cuda launches
+on every path (phases 6, 8, 9, 9c, 9e-9g, 11, 12; in 9f those of this
+process, not of its children) and count the rounds a loop
 replays: a capture launches nothing, and each loop adds its captured
 round's launches for every round after its eager first one
 (``StretchGraphs.settle``).
@@ -1042,6 +1079,8 @@ def bc_hazard(torch, ops, bc_mod, g, source, runs_by_sub):
 # ---- phases 9a-9d: fetches per stretch, det add, out of core, memtier --------
 
 LOOP_ROUNDS = 2_000            # the timed device-loop case's stretch, in rounds
+OOC_CC_ROUNDS = 50             # cc_dd_sparse's rounds out of core (depth cut from its
+                               # 326 to keep the run in its time; both sides stop there)
 OOC_PR_ITERS = 20              # pr_push's rounds out of core (depth cut from the JAX
                                # outofcore suite's 50: every round streams the graph)
 
@@ -1299,7 +1338,7 @@ def timed_run(torch, fn):
 
 
 def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gsym, hub,
-              rng):
+              rng, directory):
     """9c: out of core on phase 3's graphs, each cut into 16 shards with a
     pool of 2 (the CSR 8 times the pool).  Labels bitwise equal to the
     resident runs, pagerank bitwise across pools and fused against eager
@@ -1308,8 +1347,9 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
     resident run's for bfs_dirop and pr_pull; then the web graph through
     the store.  The traversals of the web graph start at ``far_source``,
     whose reach crosses the most shards (the hub's stays in one), and each
-    must stream more shards than the pool holds.  Returns (edge_relax
-    shard rows, edge_relax launches)."""
+    must stream more shards than the pool holds.  The store is saved
+    under ``directory`` and kept for 9f.  Returns (edge_relax shard rows,
+    edge_relax launches, the far source, its resident bfs labels)."""
     t0 = time.perf_counter()
     tg = tiered.tier_graph(g, nshards=16, resident_shards=2, build_csc=True)
     tgs = tiered.tier_graph(gsym, nshards=16, resident_shards=2, build_csc=True)
@@ -1334,7 +1374,7 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
         ("bfs", lambda: bfs.bfs_dd_sparse(g, source)),
         ("sssp", lambda: sssp.sssp_dd_sparse(g, source)),
         ("dirop", lambda: bfs.bfs_dirop(g, source)),
-        ("cc", lambda: cc.cc_dd_sparse(gsym)),
+        ("cc", lambda: cc.cc_dd_sparse(gsym, max_rounds=OOC_CC_ROUNDS)),
         ("pr_push", lambda: pagerank.pr_push(gsym, max_iters=OOC_PR_ITERS)),
         ("pr_pull", lambda: pagerank.pr_pull(gsym)))}
     gk.reset_launches()
@@ -1345,7 +1385,8 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
              "bfs", True, False),
             ("sssp_dd_sparse", lambda: sssp.sssp_dd_sparse(tg, source), "sssp", True, False),
             ("bfs_dirop", lambda: bfs.bfs_dirop(tg, source), "dirop", True, True),
-            ("cc_dd_sparse", lambda: cc.cc_dd_sparse(tgs), "cc", True, False),
+            ("cc_dd_sparse", lambda: cc.cc_dd_sparse(tgs, max_rounds=OOC_CC_ROUNDS), "cc",
+             True, False),
             ("pr_push", lambda: pagerank.pr_push(tgs, max_iters=OOC_PR_ITERS), "pr_push",
              False, True),
             ("pr_pull", lambda: pagerank.pr_pull(tgs), "pr_pull", False, True)):
@@ -1389,41 +1430,38 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
     check(torch.allclose(det["pool 2"], res["pr_push"][0], rtol=PR_TOL[0], atol=PR_TOL[1]),
           "ooc pr_push det: outside PR_TOL of the resident run")
     del tgs, tgs16
-    directory = ROOT / "build" / f"chip_store_{os.getpid()}"
     shutil.rmtree(directory, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        store.save_graph(tg, str(directory))
-        t_save = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        opened = store.open_graph(str(directory), resident_shards=2, verify="open")
-        t_open = time.perf_counter() - t0
-        check(opened.shard_crcs == tg.shard_crcs and opened.verified,
-              "store: CRCs differ from the cut's")
-        labels, st, _ = ooc_run(torch, "bfs_dd_sparse [store, mmap]",
-                                lambda: bfs.bfs_dd_sparse(opened, source), opened, res["bfs"])
-        check(torch.equal(labels, res["bfs"][0]) and st.shards_streamed > opened.resident_shards,
-              f"store bfs: labels differ, or {st.shards_streamed} shards streamed")
-        # every shard of both directions through the pinned staging ring
-        vals = torch.rand(g.n_pad, generator=rng, device="cuda") * 100.0
-        act = g.valid_vertex_mask()
-        io0 = opened.io.snapshot()
-        for name, got, want in (
-                ("reversed push", ops.push_dense(opened, vals, act, vals, reverse=True),
-                 ops.push_dense(g, vals, act, vals, reverse=True)),
-                ("pull", ops.pull_dense(opened, vals, act, vals), ops.pull_dense(g, vals, act, vals))):
-            check(torch.equal(bits(torch, got), bits(torch, want)),
-                  f"store {name}: differs from the resident relax")
-        streamed = opened.io.shards_streamed - io0[1]
-        check(opened.io.h2d_bytes - io0[0] == streamed * opened.shard_bytes and streamed >= 31,
-              f"store relaxes: {streamed} shards streamed")
-        print(f"store: saved in {t_save} s, opened with verify='open' in {t_open} s, "
-              f"bfs equal; a reversed push and a pull over every shard streamed {streamed} "
-              f"shards through the staging ring, bitwise equal to the resident relaxes",
-              flush=True)
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
-    return rows, launches["edge_relax"]
+    t0 = time.perf_counter()
+    store.save_graph(tg, str(directory))
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opened = store.open_graph(str(directory), resident_shards=2, verify="open")
+    t_open = time.perf_counter() - t0
+    check(opened.shard_crcs == tg.shard_crcs and opened.verified,
+          "store: CRCs differ from the cut's")
+    labels, st, _ = ooc_run(torch, "bfs_dd_sparse [store, mmap]",
+                            lambda: bfs.bfs_dd_sparse(opened, source), opened, res["bfs"])
+    check(torch.equal(labels, res["bfs"][0]) and st.shards_streamed > opened.resident_shards,
+          f"store bfs: labels differ, or {st.shards_streamed} shards streamed")
+    # every shard of both directions through the pinned staging ring
+    vals = torch.rand(g.n_pad, generator=rng, device="cuda") * 100.0
+    act = g.valid_vertex_mask()
+    opened._pool.clear()   # every shard of both directions misses
+    io0 = opened.io.snapshot()
+    for name, got, want in (
+            ("reversed push", ops.push_dense(opened, vals, act, vals, reverse=True),
+             ops.push_dense(g, vals, act, vals, reverse=True)),
+            ("pull", ops.pull_dense(opened, vals, act, vals), ops.pull_dense(g, vals, act, vals))):
+        check(torch.equal(bits(torch, got), bits(torch, want)),
+              f"store {name}: differs from the resident relax")
+    streamed = opened.io.shards_streamed - io0[1]
+    check(opened.io.h2d_bytes - io0[0] == streamed * opened.shard_bytes
+          and streamed == 2 * opened.nshards, f"store relaxes: {streamed} shards streamed")
+    print(f"store: saved in {t_save} s, opened with verify='open' in {t_open} s, "
+          f"bfs equal; a reversed push and a pull over every shard streamed {streamed} "
+          f"shards through the staging ring, bitwise equal to the resident relaxes",
+          flush=True)
+    return rows, launches["edge_relax"], source, res["bfs"][0]
 
 
 def pr_push_streamed(torch, eng, pagerank, tg, fused):
@@ -1447,6 +1485,390 @@ def memtier_phase(memtier):
     rows = memtier.device_rows("cuda")
     for name, us, derived, _ in rows:
         print(f"  memtier {name},{us},{derived}", flush=True)
+
+
+# ---- phases 9e-9g: the figure suites, resume, dynamic graphs -----------------
+
+# a figure-suite row's call ("<algo>/<class or variant>") -> the phase 6, 8 or
+# 9 run of the same function on the same container (kcore/peel in
+# algo_classes peels k = 4, which no earlier phase runs)
+SUITE_REFS = {
+    "bfs/galois": "bfs_dd_sparse", "bfs/dd_sparse": "bfs_dd_sparse",
+    "sssp/gap": "sssp_delta", "sssp/gbbs": "sssp_delta", "sssp/galois": "sssp_delta",
+    "sssp/delta": "sssp_delta",
+    "cc/gap": "cc_pointer_jump", "cc/galois": "cc_pointer_jump",
+    "cc/pointer_jump": "cc_pointer_jump", "cc/dd_sparse": "cc_dd_sparse",
+    "pr/graphit": "pr_pull", "pr/gap": "pr_pull", "pr/gbbs": "pr_pull",
+    "pagerank/pull": "pr_pull", "pr/galois": "pr_push", "pagerank/push": "pr_push",
+    "bc/all": "bc_brandes", "bc/brandes": "bc_brandes",
+    "kcore/all": "kcore_peel(k=3)",
+    "tc/all": "tc_count", "tc/orient_intersect": "tc_count",
+}
+# 9e's rows held against each other on one graph: every frameworks and
+# algo_classes row of an algorithm has the labels of its anchor row, bitwise
+SUITE_ANCHORS = {"bfs": "dd_sparse", "sssp": "delta", "cc": "pointer_jump"}
+GRANULARITY_COMMUNITIES = 64   # an eighth of phase 3's 512, cut in depth only
+# 9f's kill drills: (algo, pool); each is killed at a quarter of its
+# uninterrupted rounds (at least 3) and snapshots every third of that;
+# pr_push runs OOC_PR_ITERS rounds under deterministic add
+RESUME_DRILLS = (("bfs", 2), ("pr_push", 16))
+# 9g: inserts between existing vertices, symmetrized
+DYN_BATCHES, DYN_BATCH_EDGES, DYN_POOLS = 6, 65_536, (16, 4)
+# depth cuts of the pagerank replays: they take the first batch only, and
+# the cross-pool pair stops each solve after DYN_DET_ITERS rounds (the
+# converged replay at a pool of 16 is the one held to scratch): at a pool
+# of 4 every round misses all 16 shards and re-checks their CRCs, 0.76 s a
+# round on an H100 (PERF.md); DYN_SUB_ITERS rounds a solve for the substrate
+# check
+DYN_PR_BATCHES, DYN_DET_ITERS, DYN_SUB_ITERS = 1, 20, 20
+
+
+class _Stats(dict):
+    """A suite row's stats dict where ``compare_runs`` expects RunStats."""
+
+    def as_dict(self):
+        return dict(self)
+
+
+def suite_rows_check(torch, label, rows, results, refs, dense_m):
+    """Print each row with its counters, and hold it against the earlier
+    phase's run of the same function on the same container: labels bitwise
+    (pagerank within PR_TOL, its rounds within one; bc within BC_TOL);
+    RunStats equal but ``substrate`` (tc's only by count: the suites chunk
+    its edges by 8192)."""
+    compared = 0
+    for name, us, derived, stats in rows:
+        print(f"  {label} {name} us={us} {derived}", flush=True)
+        parts = name.split("/")
+        ref = refs.get(SUITE_REFS.get(f"{parts[1]}/{parts[-1]}"))
+        if ref is None:
+            continue
+        got = results[name]
+        if parts[1] == "tc":
+            check(int(got) == int(ref[0]), f"{label} {name}: count {got} != {ref[0]}")
+        else:
+            st = _Stats(stats)
+            tol = (PR_TOL if parts[1] in ("pr", "pagerank") else
+                   BC_TOL if parts[1] == "bc" else None)
+            compare_runs(torch, f"{label} {name}", (got, st, 0, 0), (ref[0], ref[1], 0, 0),
+                         tol, dense_m if tol is PR_TOL else None)
+        compared += 1
+    return compared
+
+
+def suite_cross_check(torch, label, results):
+    """Hold one graph's suite rows against each other: every bfs, sssp and
+    cc row (the frameworks' classes and algo_classes' variants) has the
+    labels of algo_classes' SUITE_ANCHORS row, and the two k = 4 peels
+    keep the same vertices; all bitwise.  ``results`` maps the row names
+    of that graph to their labels.  Returns the number of rows held."""
+    held = 0
+    for algo, variant in SUITE_ANCHORS.items():
+        anchor = f"fig6/{algo}/{label}/{variant}"
+        want = bits(torch, results[anchor].cpu())
+        for name, got in results.items():
+            if name.split("/")[1] == algo and name != anchor:
+                check(torch.equal(bits(torch, got.cpu()), want),
+                      f"9e {label}: {name} differs from {anchor}")
+                held += 1
+    peel, dd = (results[f"fig7/kcore/{label}/{v}"].cpu() for v in ("peel", "dd_sparse"))
+    check(torch.equal(peel, dd), f"9e {label}: the two k = 4 peels keep different vertices")
+    return held + 1
+
+
+def suites_phase(torch, np, gk, gen_mod, benches, web, kron, refs):
+    """9e: the paper's figure suites at full width.  ``frameworks`` on both
+    graphs and ``algo_classes`` on both, warm-up 1 and one timed call, each
+    row held against the earlier phases' run of the same call and against
+    its graph's anchor row (``suite_cross_check``); then
+    ``granularity`` on a web graph cut to GRANULARITY_COMMUNITIES
+    communities (it rebuilds its graph at three block sizes).  Returns the
+    kernel launches of the suites' cuda runs."""
+    granularity, frameworks, algo_classes = benches
+    gk.reset_launches()
+    compared = 0
+    by_graph = {}
+    for label, graphs in (("web", web), ("kron", kron)):
+        t0 = time.perf_counter()
+        results = by_graph[label] = {}
+        rows = frameworks.run(graphs=graphs[:3], warmup=1, iters=1, results=results)
+        compared += suite_rows_check(torch, f"frameworks[{label}]", rows, results,
+                                     refs[label], graphs[1].m)
+        print(f"9e frameworks[{label}]: {len(rows)} rows in {time.perf_counter() - t0} s",
+              flush=True)
+    t0 = time.perf_counter()
+    results = {}
+    rows = algo_classes.run(graphs={"web": web[:3], "kron": kron[:3]}, warmup=1, iters=1,
+                            results=results)
+    for label in ("web", "kron"):
+        compared += suite_rows_check(
+            torch, "algo_classes", [r for r in rows if f"/{label}/" in r[0]], results,
+            refs[label], (web if label == "web" else kron)[1].m)
+    check(len(rows) == 36, f"algo_classes: {len(rows)} rows, not 36")
+    held = 0
+    for label, res in by_graph.items():
+        res.update((k, v) for k, v in results.items() if f"/{label}/" in k)
+        held += suite_cross_check(torch, label, res)
+    print(f"9e algo_classes: {len(rows)} rows in {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    coo = gen_mod.web_crawl_like(GRANULARITY_COMMUNITIES, 13, 16, 3, seed=0)
+    results = {}
+    rows = granularity.run(graphs=coo, warmup=1, iters=1, results=results)
+    for name, us, derived, stats in rows:
+        print(f"  granularity {name} us={us} {derived}", flush=True)
+    n = coo[2]
+    dists = [results[r[0]][:n] for r in rows]
+    check(all(torch.equal(dists[0], d) for d in dists[1:])
+          and len({r[3]["rounds"] for r in rows}) == 1 and int((dists[0] < 1e30).sum()) > 1,
+          "granularity: the block sizes disagree on distances or rounds")
+    print(f"9e granularity on web_crawl_like({GRANULARITY_COMMUNITIES}, 13, 16, 3) "
+          f"(n={coo[2]}, m={len(coo[0])}; cut from 512 communities in depth only): "
+          f"{len(rows)} rows in {time.perf_counter() - t0} s (three host builds)",
+          flush=True)
+    launches = gk.launch_counts()
+    print(f"9e launches (cuda): {json.dumps(launches)}; {compared} rows equal to the "
+          f"earlier phases' runs; {held} rows equal to their graph's anchor row",
+          flush=True)
+    for k in ("edge_relax", "advance", "intersect"):
+        check(launches[k] > 0, f"9e: kernel {k} was not launched")
+    return launches
+
+
+def resume_child(spec):
+    """One process of 9f's kill drill (``--resume-child JSON``): open the
+    store, attach the kill at round ``kill_at`` when ``mode`` is "kill",
+    run with a checkpointer, save the result beside the snapshots and
+    print one JSON line.  Imports nothing of the JAX package."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import RunCheckpointer, open_graph
+    from repro_torch.core import faultio
+    from repro_torch.core import operators as ops
+    from repro_torch.core.algorithms import bfs, pagerank
+
+    tg = open_graph(spec["store"], resident_shards=spec["pool"])
+    if spec["mode"] == "kill":
+        tg.set_fault_injector(faultio.FaultInjector([faultio.kill("round",
+                                                                  at=spec["kill_at"])]))
+    ckr = RunCheckpointer(spec["ckdir"], every=spec["every"])
+    t0 = time.perf_counter()
+    if spec["algo"] == "bfs":
+        out, st = bfs.bfs_dd_sparse(tg, spec["source"], checkpointer=ckr)
+    else:
+        with ops.deterministic_add_scope(True):
+            out, st = pagerank.pr_push(tg, max_iters=OOC_PR_ITERS, checkpointer=ckr)
+    torch.cuda.synchronize()
+    np.save(os.path.join(spec["ckdir"], "result.npy"), out.cpu().numpy())
+    print(json.dumps(dict(rounds=st.rounds, saves=ckr.saves, save_s=ckr.save_s,
+                          wall_s=time.perf_counter() - t0,
+                          shards_streamed=st.shards_streamed,
+                          jax_imported="jax" in sys.modules or "repro" in sys.modules)))
+    return 0
+
+
+def run_children(specs):
+    """Start one ``--resume-child`` process per spec, all at once; returns
+    ``[(returncode, stdout, stderr)]`` once every one has ended."""
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--resume-child", json.dumps(spec)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for spec in specs]
+    out = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        out.append((p.returncode, so, se))
+    return out
+
+
+def snapshot_steps(directory):
+    return sorted(int(f[5:-4]) for f in os.listdir(directory)
+                  if f.startswith("step_") and f.endswith(".npz"))
+
+
+def resume_phase(torch, np, gk, ops, ck, bfs, pagerank, directory, far, far_ref, g,
+                 source, bfs_ref, bfs_rounds):
+    """9f: resume on the card.  The kill drill on the store 9c saved
+    (``open_graph``, no new host build), for streamed bfs_dd_sparse from
+    the far source and det-add pr_push: the uninterrupted run in this
+    process, then a child killed at round r (``faultio.kill``, exit 7)
+    with a committed snapshot, then a child that resumes; both results
+    bitwise equal to the uninterrupted run.  Then a fused resume of web
+    bfs_dd_sparse on the resident graph, twice, bitwise.  Returns the
+    kernel launches of this process's cuda runs."""
+    gk.reset_launches()
+    root = directory.parent / f"{directory.name}_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    want, specs = {}, []
+    for algo, pool in RESUME_DRILLS:
+        tg = ck.open_graph(str(directory), resident_shards=pool)
+        ckr = ck.RunCheckpointer(str(root / f"{algo}_uninterrupted"), every=4)
+        t0 = time.perf_counter()
+        if algo == "bfs":
+            out, st = bfs.bfs_dd_sparse(tg, far, checkpointer=ckr)
+            check(torch.equal(out, far_ref), "9f bfs: the streamed run differs from 9c's")
+        else:
+            with ops.deterministic_add_scope(True):
+                out, st = pagerank.pr_push(tg, max_iters=OOC_PR_ITERS, checkpointer=ckr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want[algo] = out.cpu().numpy()
+        kill_at = max(3, st.rounds // 4)
+        every = max(2, kill_at // 3)
+        print(f"9f {algo} uninterrupted (pool {pool}, a snapshot every 4 rounds): "
+              f"rounds={st.rounds} wall_s={wall} snapshots={ckr.saves} save_s_each="
+              f"{ckr.save_s / max(ckr.saves, 1)} shards_streamed={st.shards_streamed}; "
+              f"the drill kills at round {kill_at}, snapshots every {every}", flush=True)
+        check(st.rounds > kill_at and ckr.saves > 0, f"9f {algo}: too few rounds to kill")
+        kill_dir = root / f"{algo}_kill"
+        kill_dir.mkdir(parents=True)
+        specs.append(dict(algo=algo, pool=pool, kill_at=kill_at, every=every,
+                          store=str(directory), ckdir=str(kill_dir), source=far))
+        del tg
+    t0 = time.perf_counter()
+    for spec, (rc, so, se) in zip(specs, run_children([dict(s, mode="kill") for s in specs])):
+        steps = snapshot_steps(spec["ckdir"])
+        print(f"9f {spec['algo']} killed at round {spec['kill_at']}: exit {rc}, snapshots "
+              f"{steps}", flush=True)
+        check(rc == 7, f"9f {spec['algo']}: the killed child exited {rc}, not 7: {se[-2000:]}")
+        check(not os.path.exists(os.path.join(spec["ckdir"], "result.npy"))
+              and steps and steps[-1] == spec["kill_at"] // spec["every"] * spec["every"],
+              f"9f {spec['algo']}: snapshots {steps} after a kill at {spec['kill_at']}")
+    t_kill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for spec, (rc, so, se) in zip(specs, run_children([dict(s, mode="resume") for s in specs])):
+        check(rc == 0, f"9f {spec['algo']}: the resumed child exited {rc}: {se[-2000:]}")
+        line = json.loads(so.strip().splitlines()[-1])
+        got = np.load(os.path.join(spec["ckdir"], "result.npy"))
+        check(not line["jax_imported"], "9f: a child imported the JAX package")
+        check(got.dtype == want[spec["algo"]].dtype
+              and np.array_equal(got.view(np.int32), want[spec["algo"]].view(np.int32)),
+              f"9f {spec['algo']}: the resumed result differs from the uninterrupted run")
+        print(f"9f {spec['algo']} resumed: {json.dumps(line)}; bitwise equal to the "
+              f"uninterrupted run", flush=True)
+    print(f"9f children: kills {t_kill} s, resumes {time.perf_counter() - t0} s "
+          f"(two at a time)", flush=True)
+    # the fused ladder on the resident graph: snapshots at stretch boundaries
+    ck_dir = root / "fused"
+    ckr = ck.RunCheckpointer(str(ck_dir), every=1, keep_last=2)
+    stop = max(1, bfs_rounds // 2)
+    dist, st = bfs.bfs_dd_sparse(g, source, max_rounds=stop, checkpointer=ckr)
+    steps = snapshot_steps(ck_dir)
+    resumed = []
+    for _ in range(2):   # from the latest snapshot, then from the one before
+        dist, st = bfs.bfs_dd_sparse(g, source, checkpointer=ck.RunCheckpointer(
+            str(ck_dir), every=10**9))
+        check(torch.equal(bits(torch, dist), bits(torch, bfs_ref)),
+              "9f fused resume: labels differ from the uninterrupted run")
+        resumed.append((snapshot_steps(ck_dir)[-1], st.rounds))
+        os.remove(ck_dir / f"step_{snapshot_steps(ck_dir)[-1]:010d}.npz")
+    print(f"9f fused bfs_dd_sparse on the resident web graph ({bfs_rounds} rounds): "
+          f"stopped at round {stop} with "
+          f"snapshots {steps} ({ckr.saves} saves, {ckr.save_s / max(ckr.saves, 1)} s "
+          f"each); resumed from (round, rounds run) {resumed}, bitwise twice", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    launches = gk.launch_counts()
+    print(f"9f launches (cuda, this process): {json.dumps(launches)}", flush=True)
+    check(launches["edge_relax"] > 0 and launches["advance"] > 0,
+          "9f: edge_relax or advance was not launched")
+    return launches
+
+
+def dynamic_substrates(torch, gk, ops, store, pagerank, directory, post):
+    """9g's log-shard add relax against its plain version: the store the
+    suite leaves (its base and the six batches' logs, saved before the
+    compaction) opened at a pool of 16, a cold pr_incremental and, after
+    ``post``, a warm one from the cuda run's state, each on both substrates
+    under plain float add (deterministic add takes the plain fixed-order
+    sum on both), DYN_SUB_ITERS rounds a solve: ranks within PR_TOL,
+    rounds equal."""
+    h = store.open_dynamic(str(directory), resident_shards=16)
+    logged = h.m - h.base.m
+    check(logged > 0, "9g: the store holds no logs")
+    launches, state, delta = 0, None, None
+    for solve in ("cold", "warm"):
+        if solve == "warm":
+            delta = h.apply_batch(*post, symmetrize=True)
+        got = {}
+        for sub in ("cuda", "torch"):
+            gk.reset_launches()
+            with ops.substrate_scope(sub):
+                # each side starts from its own copy of the cuda run's state
+                got[sub] = pagerank.pr_incremental(
+                    h, delta, None if state is None else type(state)(
+                        *(t.clone() for t in state)), tol=1e-6, max_iters=DYN_SUB_ITERS)
+            torch.cuda.synchronize()
+            n_relax = gk.launch_counts()["edge_relax"]
+            check((n_relax > 0) == (sub == "cuda"),
+                  f"9g {solve} pr_incremental [{sub}]: {n_relax} edge_relax launches")
+            launches += n_relax
+        (rc, sc, pc), (rt, st, _) = got["cuda"], got["torch"]
+        compare_runs(torch, f"9g {solve} pr_incremental cuda/torch", (rc, None, 0, 0),
+                     (rt, None, 0, 0), PR_TOL)
+        check(sc.rounds == st.rounds == DYN_SUB_ITERS,
+              f"9g {solve} pr_incremental: rounds {sc.rounds} and {st.rounds}")
+        check(bool(torch.isfinite(rc).all()), f"9g {solve} pr_incremental: non-finite")
+        state = pc
+    print(f"9g pr_incremental on the logged store, cold and warm, cuda against torch "
+          f"({DYN_SUB_ITERS} rounds a solve, {logged} log edges before the last "
+          f"batch): within PR_TOL; edge_relax launches {launches}", flush=True)
+
+
+def dynamic_phase(torch, np, gk, ops, store, pagerank, dynamic_bench, gsym, source,
+                  directory):
+    """9g: dynamic graphs at full width through ``benchmarks/dynamic.py``:
+    phase 3's symmetrized graph saved at 16 shards and opened with
+    ``open_dynamic``; DYN_BATCHES seeded batches of DYN_BATCH_EDGES edges
+    between existing vertices (symmetrized); after each, incremental bfs
+    and cc against the from-scratch runs, bitwise; pr_incremental's det-add
+    replay allclose to scratch and bitwise across DYN_POOLS; compaction,
+    the save_dynamic / open_dynamic round trip and one batch after
+    compaction.  Every flag of the suite's rows must be 1.  Then
+    ``dynamic_substrates`` on the store.  Returns the suite's kernel
+    launches."""
+    rng = np.random.default_rng(18)
+    n = gsym.n
+    batches = [(rng.integers(0, n, DYN_BATCH_EDGES), rng.integers(0, n, DYN_BATCH_EDGES))
+               for _ in range(DYN_BATCHES + 1)]
+    print(f"9g: {DYN_BATCHES} batches of {DYN_BATCH_EDGES} edges (+1 after compaction), "
+          f"symmetrized, on phase 3's symmetrized web graph (m={gsym.m}) at 16 shards, "
+          f"pools {DYN_POOLS} (the stream's; the pagerank replays'), every handle "
+          f"checking each shard's CRC as it streams; against the JAX suite: its "
+          f"rmat(10, 12) and batches of 64 scaled up, its pools (4, 8) changed, the "
+          f"pagerank replays cut to the first {DYN_PR_BATCHES} batch(es) and the "
+          f"cross-pool pair to {DYN_DET_ITERS} rounds a solve, its batch count and "
+          f"pagerank's tol 1e-6 and max_iters 300 kept", flush=True)
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        rows = dynamic_bench.run(base=gsym, batches=batches[:-1], post=batches[-1],
+                                 pools=DYN_POOLS, source=source, store=directory,
+                                 pr_batches=DYN_PR_BATCHES, det_iters=DYN_DET_ITERS,
+                                 log=lambda line: print("  9g " + line, flush=True))
+        for name, us, derived, stats in rows:
+            print(f"  9g {name} us={us} {derived} {json.dumps(stats)}", flush=True)
+        flags = {"dynamic/stream_incremental": ("bitwise_equal",),
+                 "dynamic/pr_incremental": ("allclose", "det_bitwise"),
+                 "dynamic/compact": ("bitwise_after_compact", "roundtrip_equal")}
+        by = {r[0]: r[3] for r in rows}
+        for name, keys in flags.items():
+            for key in keys:
+                check(by[name][key] == 1, f"9g {name}: {key} is not 1")
+        launches = gk.launch_counts()
+        print(f"9g suite: {time.perf_counter() - t0} s; launches (cuda): "
+              f"{json.dumps(launches)}", flush=True)
+        check(launches["edge_relax"] > 0, "9g: edge_relax was not launched")
+        t1 = time.perf_counter()
+        dynamic_substrates(torch, gk, ops, store, pagerank, directory, batches[-1])
+        print(f"9g substrate check: {time.perf_counter() - t1} s", flush=True)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return launches
 
 
 # ---- phases 10-12: flash attention, spmm_bsr, embedding_bag, the layer and --
@@ -1901,7 +2323,10 @@ def main() -> int:
                     help="web_crawl_like communities (the depth; default 512)")
     ap.add_argument("--kron-scale", type=int, default=20,
                     help="log2 vertices of the low-diameter kron input (default 20)")
+    ap.add_argument("--resume-child", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.resume_child:
+        return resume_child(json.loads(args.resume_child))
 
     import torch
     if not torch.cuda.is_available():
@@ -1921,7 +2346,9 @@ def main() -> int:
     from repro_torch.graphs import generators as gen_mod
     from repro_torch import kernels as kern
     from repro_torch import checkpoint as store
-    from repro_torch.benchmarks import kernels_bench, memtier
+    from repro_torch.benchmarks import algo_classes, frameworks, granularity, kernels_bench
+    from repro_torch.benchmarks import dynamic as dynamic_bench
+    from repro_torch.benchmarks import memtier
     from repro_torch.core import engine as eng
     from repro_torch.core import tiered
     from repro_torch.kernels import device_loop as dl
@@ -2064,6 +2491,11 @@ def main() -> int:
         torch, gk, ops, "web suite", web_suite_runs(suite, g, gsym, source),
         ("edge_relax", "advance", "intersect"))
     bc_hazard(torch, ops, bc, g, source, {"cuda": web_cuda, "torch": web_torch})
+    # the runs 9e's suite rows are held against
+    refs = {"web": {k: cuda_runs[k][:2] for k in main_runs},
+            "kron": {}}
+    refs["web"].update({k: web_cuda[k][:2] for k in
+                        ("kcore_peel(k=3)", "bc_brandes", "tc_count")})
     alive64 = web_cuda["kcore_dd_sparse(k=64)"][0]
     check(bool(alive64.any()) and torch.equal(
         alive64, web_cuda["core_numbers(k_max=64)"][0] >= 64),
@@ -2086,6 +2518,8 @@ def main() -> int:
         kron_suite_runs(algos, suite, kg, kg_unw, kgsym, ksource),
         ("edge_relax", "advance", "intersect"))
     bc_hazard(torch, ops, bc, kg, ksource, {"cuda": kron_cuda, "torch": kron_torch})
+    # phase 9's bfs runs on the unweighted kron graph, the suites' on kg
+    refs["kron"] = {k: v[:2] for k, v in kron_cuda.items() if k != "bfs_dd_sparse"}
     check(kron_cuda["tc_count"][0] > 0, "no triangles on kron")
     check(bool(torch.isfinite(kron_cuda["pr_push"][0]).all()), "kron: non-finite ranks")
     print("kron suite: cuda == torch (labels bitwise, pagerank and bc allclose, "
@@ -2103,12 +2537,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    shard_rows, ooc_relax = ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc,
-                                      pagerank, g, gsym, source, rng)
-    relax_rows += shard_rows
-    print(f"9c: {time.perf_counter() - t0} s, peak device bytes "
-          f"{torch.cuda.max_memory_allocated()}", flush=True)
-    memtier_phase(memtier)
+    directory = ROOT / "build" / f"chip_store_{os.getpid()}"
+    try:
+        shard_rows, ooc_relax, far, far_ref = ooc_phase(
+            torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gsym, source,
+            rng, directory)
+        relax_rows += shard_rows
+        print(f"9c: {time.perf_counter() - t0} s, peak device bytes "
+              f"{torch.cuda.max_memory_allocated()}", flush=True)
+        memtier_phase(memtier)
+
+        # 9e-9g. the figure suites, resume, dynamic graphs
+        t0 = time.perf_counter()
+        suite_launches = suites_phase(torch, np, gk, gen_mod,
+                                      (granularity, frameworks, algo_classes),
+                                      (g, gsym, source), (kg, kgsym, ksource), refs)
+        print(f"9e: {time.perf_counter() - t0} s", flush=True)
+        t0 = time.perf_counter()
+        resume_launches = resume_phase(torch, np, gk, ops, store, bfs, pagerank, directory,
+                                       far, far_ref, g, source,
+                                       *cuda_runs["bfs_dd_sparse"][:1],
+                                       cuda_runs["bfs_dd_sparse"][1].rounds)
+        print(f"9f: {time.perf_counter() - t0} s", flush=True)
+        t0 = time.perf_counter()
+        dyn_launches = dynamic_phase(torch, np, gk, ops, store, pagerank, dynamic_bench,
+                                     gsym, source,
+                                     directory.parent / f"{directory.name}_dynamic")
+        print(f"9g: {time.perf_counter() - t0} s", flush=True)
+    finally:
+        for d in (directory, directory.parent / f"{directory.name}_dynamic",
+                  directory.parent / f"{directory.name}_ckpt"):
+            shutil.rmtree(d, ignore_errors=True)
+    del refs
     del (g, gsym, kg, kg_unw, kgsym, main_runs, cuda_runs, torch_runs, kw, mask)
     torch.cuda.empty_cache()
 
@@ -2142,7 +2602,9 @@ def main() -> int:
 
     # every path's cuda launches: the three graph paths count graph_ops only
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,
-                                                layer_launches, bench_launches))
+                                                suite_launches, resume_launches,
+                                                dyn_launches, layer_launches,
+                                                bench_launches))
              for k in bench_launches}
     total["edge_relax"] += ooc_relax
     src_file = "src/repro_torch/kernels/graph_ops/csrc/graph_ops.cu"

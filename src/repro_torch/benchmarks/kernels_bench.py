@@ -15,9 +15,6 @@ Runs on the card; without one it raises unless given ``--device cpu``
 
 from __future__ import annotations
 
-import argparse
-import json
-
 import numpy as np
 import torch
 
@@ -31,7 +28,7 @@ from ..kernels.embedding_bag.ref import embedding_bag_ref
 from ..kernels.flash_attention.flash_attention import flash_attention_bhsd
 from ..kernels.flash_attention.ref import attention_ref
 from ..kernels.spmm_bsr.spmm_bsr import spmm_bsr, to_bsr
-from .common import print_rows, row, rows_as_json, time_call
+from .common import row, suite_main, time_call
 
 
 def _t(a, dev, dtype=None):
@@ -148,18 +145,7 @@ def run(device=None):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--emit-json", metavar="PATH",
-                    help="also write the rows as JSON to PATH")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the card; 'cpu' runs the plain versions)")
-    args = ap.parse_args(argv)
-    rows = run(args.device)
-    print_rows(rows)
-    if args.emit_json:
-        with open(args.emit_json, "w") as fh:
-            json.dump(rows_as_json("kernels", rows), fh, indent=1)
-    return 0
+    return suite_main("kernels", run, __doc__, argv)
 
 
 if __name__ == "__main__":

@@ -30,8 +30,6 @@ Runs on the card; without one it raises unless given ``--device cpu``
 
 from __future__ import annotations
 
-import argparse
-import json
 import shutil
 import tempfile
 
@@ -42,7 +40,7 @@ from ..checkpoint import open_graph, save_graph
 from ..core.algorithms import bfs, pagerank
 from ..core.graph import _device, from_coo
 from ..graphs import generators as gen
-from .common import print_rows, row, rows_as_json, time_call
+from .common import row, suite_main, time_call
 
 
 def run(device=None):
@@ -136,18 +134,7 @@ def run(device=None):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--emit-json", metavar="PATH",
-                    help="also write the rows as JSON to PATH")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the card; 'cpu' runs the plain versions)")
-    args = ap.parse_args(argv)
-    rows = run(args.device)
-    print_rows(rows)
-    if args.emit_json:
-        with open(args.emit_json, "w") as fh:
-            json.dump(rows_as_json("outofcore", rows), fh, indent=1)
-    return 0
+    return suite_main("outofcore", run, __doc__, argv)
 
 
 if __name__ == "__main__":

@@ -15,9 +15,11 @@ archives, so ``open_graph`` finds each stored ``.npy`` member inside the
 zip and hands it to ``np.memmap``: pages fault in only when a shard is
 actually streamed (through ``TieredGraph``'s pinned staging ring).
 
-Run checkpoints (``RunCheckpointer``, ``save_pytree`` / ``load_pytree``)
-are ROADMAP queue 1, item 8, and dynamic stores (``save_dynamic`` /
-``open_dynamic``, format v3) item 9.
+Format v3 adds the dynamic edge-log tier (``save_dynamic`` /
+``open_dynamic``): one ``log_NNNNNN.npz`` per shard with a non-empty log
+and a ``"logs"`` manifest block (sizes, CRCs, m).  ``open_graph`` refuses
+a v3 store whose logs are not empty: dropping them would change answers.
+Run checkpoints live in ``checkpoint/manager.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..core.tiered import TieredGraph, shard_crc, tier_graph
 
 GRAPH_MANIFEST = "graph_manifest.json"
 _GRAPH_FORMAT = "tiered-graph-v2"
+_GRAPH_FORMAT_DYNAMIC = "tiered-graph-v3"
 _GRAPH_FORMATS = ("tiered-graph-v1", "tiered-graph-v2", "tiered-graph-v3")
 _SHARD_DTYPES = ("int32", "int32", "float32")  # src, dst, w
 
@@ -91,6 +94,10 @@ def _load_shard_arrays(path: str, names=("src", "dst", "w")):
 def _shard_path(directory: str, sid: int, direction: str = "csr") -> str:
     prefix = "cscshard" if direction == "csc" else "shard"
     return os.path.join(directory, f"{prefix}_{sid:06d}.npz")
+
+
+def _log_path(directory: str, sid: int) -> str:
+    return os.path.join(directory, f"log_{sid:06d}.npz")
 
 
 def _replace_written(final: str, write) -> None:
@@ -172,7 +179,7 @@ def save_graph(g, directory: str, nshards: int = 8,
 
 def open_graph(directory: str, resident_shards: int = 2,
                resident_bytes: Optional[int] = None, verify: str = "fetch",
-               *, device=None) -> TieredGraph:
+               *, device=None, _with_logs: bool = False) -> TieredGraph:
     """Open a persisted graph store as a ``TieredGraph`` whose host shards
     are memory-mapped off disk, its vertex tier on ``device`` (the card by
     default).
@@ -202,11 +209,13 @@ def open_graph(directory: str, resident_shards: int = 2,
     if man.get("format") not in _GRAPH_FORMATS:
         raise ValueError(f"unknown graph store format {man.get('format')!r}")
     logs = man.get("logs")
-    if logs is not None and any(int(s) for s in logs.get("sizes", ())):
+    if (not _with_logs and logs is not None
+            and any(int(s) for s in logs.get("sizes", ()))):
         raise ValueError(
             f"graph store {directory} is a dynamic (v3) store with pending "
             "edge-log deltas; opening it as a plain TieredGraph would "
-            "silently drop them (dynamic stores are ROADMAP queue 1, item 9)")
+            "silently drop them — use checkpoint.open_dynamic, or "
+            "compact() and save_dynamic first")
     nshards, epd = int(man["nshards"]), int(man["epd"])
     crcs = man.get("shard_crcs")  # absent on v1 stores: unverifiable
     if crcs is None:
@@ -289,3 +298,113 @@ def open_graph(directory: str, resident_shards: int = 2,
         verified=(verify != "off"), device=device,
         **csc_kw,
     )
+
+
+def save_dynamic(dyn, directory: str, nshards: int = 8) -> str:
+    """Persist a ``core.DynamicGraph`` as a v3 store: the base cut through
+    ``save_graph``, one ``log_NNNNNN.npz`` per shard with a non-empty log,
+    and a v3 manifest with a ``"logs"`` block ({sizes, crcs, m}) written
+    last.  When ``directory`` already holds this base's cut (same nshards
+    and epd, the same shard CRCs) only the logs and the manifest are
+    rewritten.  A log torn between its write and the manifest's fails its
+    CRC at the next ``open_dynamic``."""
+    from ..core.dynamic import DynamicGraph
+
+    if not isinstance(dyn, DynamicGraph):
+        raise TypeError(f"save_dynamic needs a DynamicGraph, got {type(dyn).__name__}")
+    base = dyn.base
+    mpath = os.path.join(directory, GRAPH_MANIFEST)
+    reuse = False
+    if os.path.exists(mpath):
+        with open(mpath) as f:
+            man = json.load(f)
+        reuse = (man.get("format") in _GRAPH_FORMATS
+                 and man.get("nshards") == base.nshards
+                 and man.get("epd") == base.epd
+                 and base.shard_crcs is not None
+                 and man.get("shard_crcs") == list(base.shard_crcs))
+    if not reuse:
+        save_graph(base, directory, nshards)
+        with open(mpath) as f:
+            man = json.load(f)
+    sizes, crcs = [], []
+    for sid in range(base.nshards):
+        s, d, w = dyn._log[sid]
+        sizes.append(int(s.size))
+        crcs.append(shard_crc(s, d, w))
+        final = _log_path(directory, sid)
+        if s.size:
+            _replace_written(final, lambda f: np.savez(f, src=s, dst=d, w=w))
+        elif os.path.exists(final):   # a stale log of a save before compaction
+            os.remove(final)
+    man["format"] = _GRAPH_FORMAT_DYNAMIC
+    man["logs"] = {"sizes": sizes, "crcs": crcs, "m": int(dyn.m)}
+    _replace_written(mpath, lambda f: f.write(json.dumps(man).encode()))
+    return directory
+
+
+def open_dynamic(directory: str, resident_shards: int = 2,
+                 resident_bytes: Optional[int] = None, verify: str = "fetch",
+                 *, device=None):
+    """Open a graph store as a ``core.DynamicGraph``: the base cut as
+    ``open_graph`` opens it (mmap, the same ``verify`` modes), and the v3
+    logs loaded now, their CRCs checked (unless ``verify="off"``), onto
+    the device.  A v1/v2 store opens with empty logs."""
+    from ..core.dynamic import DynamicGraph
+
+    base = open_graph(directory, resident_shards, resident_bytes, verify,
+                      device=device, _with_logs=True)
+    dyn = DynamicGraph(base)
+    with open(os.path.join(directory, GRAPH_MANIFEST)) as f:
+        man = json.load(f)
+    logs = man.get("logs")
+    if logs is None:
+        return dyn
+    sizes = [int(x) for x in logs["sizes"]]
+    crcs = logs.get("crcs")
+    if len(sizes) != base.nshards:
+        raise ValueError(
+            f"graph store {directory} logs block promises {len(sizes)} "
+            f"shards, base cut has {base.nshards}")
+    host = []
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, np.float32))
+    for sid, size in enumerate(sizes):
+        if size == 0:
+            host.append(empty)
+            continue
+        path = _log_path(directory, sid)
+        if not os.path.exists(path):
+            raise ValueError(
+                f"graph store {directory} is incomplete: manifest promises "
+                f"{size} log edges for shard {sid} but "
+                f"{os.path.basename(path)} is missing")
+        try:
+            s, d, w = _load_shard_arrays(path)
+        except Exception as e:
+            raise ShardCorruptError(
+                f"graph store {directory} log shard {sid} is unreadable "
+                f"({type(e).__name__}: {e}) — torn or truncated write; "
+                "restore the log or re-run save_dynamic") from e
+        s = np.asarray(s, np.int32)
+        d = np.asarray(d, np.int32)
+        w = np.asarray(w, np.float32)
+        if not (s.size == d.size == w.size == size):
+            raise ValueError(
+                f"graph store {directory} log shard {sid} holds "
+                f"{s.size}/{d.size}/{w.size} edges, manifest says {size}")
+        if verify != "off" and crcs is not None:
+            got = shard_crc(s, d, w)
+            if got != int(crcs[sid]):
+                raise ShardCorruptError(
+                    f"graph store {directory} log shard {sid}: crc32 "
+                    f"{got:#010x} != manifest {int(crcs[sid]):#010x} — "
+                    "bit-rot or a save torn between the log writes and "
+                    "the manifest commit; re-run save_dynamic")
+        host.append((s, d, w))
+    dyn._restore_logs(host)
+    want_m = int(logs.get("m", dyn.m))
+    if dyn.m != want_m:
+        raise ValueError(
+            f"graph store {directory} logs block says m={want_m}, base + "
+            f"logs give {dyn.m}")
+    return dyn

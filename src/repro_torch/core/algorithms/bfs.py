@@ -5,6 +5,7 @@
 * ``bfs_dd_dense``  data-driven, dense bitmap worklist.
 * ``bfs_dd_sparse`` data-driven, sparse worklist via the capacity ladder.
 * ``bfs_dirop``     direction-optimizing (Beamer).
+* ``bfs_incremental`` re-converges after a ``dynamic.DeltaBatch``.
 
 Distances are float32; the relax carries the graph's edge weights.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import frontier as fr
 from .. import operators as ops
 from ..engine import (RunStats, SparseLadderEngine, _mask_active, _mask_cond,
                       fetch, run_dense, run_host, run_streamed)
@@ -112,12 +114,31 @@ def _dense_step(g, dist, mask):
 
 
 def bfs_dd_sparse(g: Graph, src: int, max_rounds: int = 100_000,
-                  fused: bool = True):
+                  fused: bool = True, checkpointer=None):
     """Data-driven over the sparse-worklist ladder (the paper's Galois
     class).  ``fused`` selects rung stretches (default) vs one dispatch per
-    round — identical labels and RunStats either way."""
+    round — identical labels and RunStats either way.  ``checkpointer`` (a
+    ``checkpoint.RunCheckpointer``) snapshots the (dist, frontier) state
+    and resumes an interrupted run bitwise."""
     eng = SparseLadderEngine(g, _sparse_step, _dense_step, fused=fused)
-    dist, _ = eng.run(_init_dist(g, src), _source_mask(g, src), max_rounds)
+    dist, _ = eng.run(_init_dist(g, src), _source_mask(g, src), max_rounds,
+                      checkpointer=checkpointer)
+    return dist, eng.stats
+
+
+def bfs_incremental(g, dist, delta, max_rounds: int = 100_000,
+                    fused: bool = True, checkpointer=None):
+    """Re-converge BFS distances after a ``dynamic.DeltaBatch``.  Inserts
+    only shorten paths, so ``dist`` stays an upper bound and the min-relax
+    fixed point is reached from the batch's dirty sources that are already
+    reached; the fixed point is unique and every relax makes the same
+    ``dist[src] + w`` message, so the result is bitwise equal to a
+    from-scratch ``bfs_dd_sparse`` on the updated container."""
+    dirty = fr.dense_from_indices(delta.dirty.astype(np.int64), g.n_pad,
+                                  device=g.device).mask
+    mask0 = dirty & (dist != INF)
+    eng = SparseLadderEngine(g, _sparse_step, _dense_step, fused=fused)
+    dist, _ = eng.run(dist, mask0, max_rounds, checkpointer=checkpointer)
     return dist, eng.stats
 
 
@@ -225,3 +246,11 @@ def bfs_dirop(g: Graph, src: int, max_rounds: int = 100_000,
     stats = RunStats.from_graph(g, rounds=rounds, edges_touched=work,
                                 dense_rounds=rounds, pull_rounds=pulls)
     return dist, stats
+
+
+VARIANTS = {
+    "topo": bfs_topo,
+    "dd_dense": bfs_dd_dense,
+    "dd_sparse": bfs_dd_sparse,
+    "dirop": bfs_dirop,
+}

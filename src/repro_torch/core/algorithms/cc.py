@@ -8,12 +8,15 @@ are int32.
 * ``cc_pointer_jump``  hook + full pointer-jumping (Shiloach–Vishkin style),
                        O(log n) rounds regardless of diameter.
 * ``cc_dd_sparse``     min-label flooding over the sparse-worklist ladder.
+* ``cc_incremental``   re-converges after a ``dynamic.DeltaBatch``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import frontier as fr
 from .. import operators as ops
 from ..engine import RunStats, SparseLadderEngine, run_dense, run_host
 from ..graph import Graph
@@ -103,3 +106,26 @@ def cc_dd_sparse(g: Graph, max_rounds: int = 100_000, fused: bool = True):
     lab, _ = eng.run(_init_labels(g), g.valid_vertex_mask(), max_rounds)
     return lab, eng.stats
 
+
+def cc_incremental(g, labels, delta, max_rounds: int = 100_000,
+                   fused: bool = True):
+    """Re-converge CC labels after a ``dynamic.DeltaBatch`` applied with
+    ``symmetrize=True`` (both endpoints of every insert are dirty).
+    Inserts only merge components, so the min flood restarts from the
+    dirty endpoints alone; its fixed point is unique, so the result is
+    bitwise equal to a from-scratch ``cc_dd_sparse`` on the updated
+    container."""
+    mask0 = fr.dense_from_indices(delta.dirty.astype(np.int64), g.n_pad,
+                                  device=g.device).mask
+    eng = SparseLadderEngine(g, _cc_sparse_step, _cc_dense_step, fused=fused)
+    lab, _ = eng.run(labels, mask0, max_rounds)
+    return lab, eng.stats
+
+
+
+VARIANTS = {
+    "labelprop": cc_labelprop,
+    "labelprop_sc": cc_labelprop_sc,
+    "pointer_jump": cc_pointer_jump,
+    "dd_sparse": cc_dd_sparse,
+}

@@ -127,3 +127,11 @@ def sssp_delta(g: Graph, src: int, delta: float = 4.0,
                                      edges_touched=inner_total * g.m,
                                      dense_rounds=inner_total)
 
+
+
+VARIANTS = {
+    "bellman_ford": sssp_bellman_ford,
+    "dd_dense": sssp_dd_dense,
+    "dd_sparse": sssp_dd_sparse,
+    "delta": sssp_delta,
+}

@@ -35,9 +35,11 @@ per stretch, as the reference's ``jax.device_get`` makes it:
   loop (``_staged_stretch``), which exits when the live set changes.
   ``SparseLadderEngine`` hands tiered graphs to it.
 
-Run checkpointing (the reference's ``RunCheckpointer``, ``resume_run``) is
-ROADMAP queue 1, item 8: resume: ``run_host`` and ``run_streamed`` raise when given
-a ``checkpointer``.
+* ``resume_run`` — every runner takes a ``checkpointer``
+  (``checkpoint.RunCheckpointer``): it resumes from the latest snapshot
+  and snapshots the state at the host boundaries the runner already pays
+  for (after an eager round, after a stretch's fetch), never adding a
+  fetch.  ``max_rounds`` stays the run's total budget across restarts.
 """
 
 from __future__ import annotations
@@ -152,6 +154,31 @@ def _state_device(state):
     return state.device if isinstance(state, torch.Tensor) else None
 
 
+def _place(loaded, like):
+    """``loaded`` (a snapshot's host arrays, in ``like``'s structure) as
+    fresh tensors on the devices and in the dtypes of ``like``'s leaves."""
+    if isinstance(like, (tuple, list)):
+        return type(like)(_place(a, b) for a, b in zip(loaded, like))
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(np.array(loaded)).to(device=like.device,
+                                                      dtype=like.dtype)
+    return np.asarray(loaded).item()
+
+
+def resume_run(checkpointer, state_like):
+    """``(state, start_round)`` for a run that may be resuming: the
+    checkpointer's latest snapshot placed on the device in fresh tensors,
+    or ``state_like`` and round 0.  The round is the one the snapshot was
+    taken after; the runner goes on from it, and since every fold order is
+    fixed it finishes bitwise equal to the uninterrupted run."""
+    if checkpointer is None:
+        return state_like, 0
+    state, start = checkpointer.load(state_like)
+    if start:
+        state = _place(state, state_like)
+    return state, start
+
+
 def run_dense(step: Callable, state, cond: Callable, max_rounds: int):
     """``state = step(state)`` while ``cond(state)``, as one device loop;
     returns ``(rounds, state)`` after one fetch of the round count.  The
@@ -179,17 +206,19 @@ def run_host(step: Callable, state, cond: Callable, max_rounds: int,
     and the tiered graphs' rounds that walk the host's buffer pool
     (``pr_pull`` over a streamed CSC mirror).  ``fault`` (a
     ``core.faultio.FaultInjector``) ticks its ``"round"`` site before each
-    round, so a drill can delay or kill a run at an exact round.  Same
-    ``(rounds, state)`` contract as ``run_dense``."""
-    if checkpointer is not None:
-        raise NotImplementedError(
-            "run checkpointing is not ported yet (ROADMAP queue 1, item 8: resume)")
-    rounds = 0
+    round, so a drill can delay or kill a run at an exact round;
+    ``checkpointer`` resumes from its latest snapshot and offers the state
+    to ``maybe_save`` after every round.  Same ``(rounds, state)``
+    contract as ``run_dense``; ``max_rounds`` is the total budget, so a
+    run resumed at round r runs at most ``max_rounds - r`` more."""
+    state, rounds = resume_run(checkpointer, state)
     while rounds < max_rounds and fetch(cond(state)):
         if fault is not None:
             fault.tick("round", key=rounds)
         state = step(state)
         rounds += 1
+        if checkpointer is not None:
+            checkpointer.maybe_save(state, rounds)
     return rounds, state
 
 
@@ -247,6 +276,7 @@ def run_streamed(
     checkpointer=None,
     fused: bool = True,
     on_rounds: Callable = None,  # (k, live) host callback per retired batch
+    ckpt_stats: Callable = None,  # () -> stats dict for a snapshot's manifest
 ):
     """Runner for a ``tiered.TieredGraph``: frontier-driven shard
     streaming, with device loops over stable live shard sets.
@@ -263,14 +293,20 @@ def run_streamed(
     the eager rounds it replaces.
 
     ``on_rounds(k, live)`` reports every retired batch of ``k`` rounds
-    that all ran over schedule ``live``.  Returns ``(rounds, state)``."""
-    if checkpointer is not None:
-        raise NotImplementedError(
-            "run checkpointing is not ported yet (ROADMAP queue 1, item 8: resume)")
+    that all ran over schedule ``live``.  ``checkpointer`` resumes from
+    its latest snapshot and is offered the state after every eager round
+    and every stretch, once its round count has been fetched (the
+    snapshot's host copy is the only added sync, and only when it saves).
+    Returns ``(rounds, state)``."""
     state = _as_tensors(state, g.device)
+    state, rnd = resume_run(checkpointer, state)
     fault = g.fault
     use_fused = fused and fault is None
-    rnd = 0
+
+    def snapshot():
+        if checkpointer is not None:
+            checkpointer.maybe_save(
+                state, rnd, None if ckpt_stats is None else ckpt_stats())
 
     def settle(k, live):
         nonlocal rnd
@@ -279,6 +315,7 @@ def run_streamed(
         if on_rounds is not None:
             on_rounds(k, live)
         rnd += k
+        snapshot()
 
     pending = None  # (rounds run, live) of the stretch in flight
     with StretchGraphs() as graphs:
@@ -306,6 +343,7 @@ def run_streamed(
                 rnd += 1
                 if on_rounds is not None:
                     on_rounds(1, live)
+                snapshot()
             else:
                 state, k_dev = _staged_stretch(
                     sg, state, max_rounds - rnd, step=step, cond=cond,
@@ -424,15 +462,21 @@ class SparseLadderEngine:
         self._dense_fn = dense_step
         self.stats = RunStats.from_graph(g)
 
-    def run(self, labels, mask, max_rounds: int = 10_000):
+    def run(self, labels, mask, max_rounds: int = 10_000, checkpointer=None):
+        """Run to the fixed point or ``max_rounds`` (the total budget).
+        ``checkpointer`` (``checkpoint.RunCheckpointer``) resumes from its
+        latest snapshot of ``(labels, mask)`` and snapshots at the host
+        boundaries of each regime: after a stretch's fetch (fused and
+        streamed) or after a round (per-round)."""
         self.stats.substrate = ops.run_substrate(self.g)
         if getattr(self.g, "is_tiered", False):
-            return self._run_streamed(labels, mask, max_rounds)
+            return self._run_streamed(labels, mask, max_rounds, checkpointer)
         if self.fused:
-            return self._run_fused(labels, mask, max_rounds, _rung_graphs(self.g))
-        return self._run_per_round(labels, mask, max_rounds)
+            return self._run_fused(labels, mask, max_rounds, _rung_graphs(self.g),
+                                   checkpointer)
+        return self._run_per_round(labels, mask, max_rounds, checkpointer)
 
-    def _run_streamed(self, labels, mask, max_rounds: int):
+    def _run_streamed(self, labels, mask, max_rounds: int, checkpointer=None):
         """Streamed dispatch for a ``tiered.TieredGraph`` through
         ``run_streamed``.  Rounds that leave shards idle count as sparse,
         rounds touching every shard as dense (a stretch's rounds share one
@@ -451,8 +495,8 @@ class SparseLadderEngine:
 
         _, (labels, mask) = run_streamed(
             g, _streamed_step_for(self._dense_fn), (labels, mask),
-            _mask_cond, _mask_active, max_rounds, fused=self.fused,
-            on_rounds=on_rounds)
+            _mask_cond, _mask_active, max_rounds, checkpointer=checkpointer,
+            fused=self.fused, on_rounds=on_rounds, ckpt_stats=self.stats.as_dict)
         g.io.fold_delta(self.stats, io0)
         return labels, mask
 
@@ -488,13 +532,16 @@ class SparseLadderEngine:
             self.stats.overflow_escalations += 1
         return cap, budget, mass_med > self.sparse_cutoff or overflow
 
-    def _run_fused(self, labels, mask, max_rounds: int, graphs):
+    def _run_fused(self, labels, mask, max_rounds: int, graphs, checkpointer=None):
         g = self.g
         # a rung loop outlives the run: its key names the steps it captured
         key_mode = (self._sparse_fn, self._dense_fn, self.dense_cost,
                     ops.get_substrate(), ops.get_deterministic_add())
+        # a resumed state is placed in fresh tensors: a kept rung loop's
+        # buffers are only ever filled by copies at its launch
+        (labels, mask), round_no = resume_run(checkpointer, (labels, mask))
         scalars = fr.round_scalars(g, mask)
-        rounds_left = max_rounds
+        rounds_left = max_rounds - round_no
         pending = None  # (budget or None, rounds, mass) of the stretch in flight
         while True:
             # ONE blocking fetch per stretch: the stretch's counters and the
@@ -506,7 +553,15 @@ class SparseLadderEngine:
                 graphs.settle(k)
                 self._settle(pending[0], k, mass)
                 rounds_left -= k
+                round_no += k
                 pending = None
+                # the stretch's state is settled: a snapshot copies it to
+                # the host before the next stretch launches (a stretch may
+                # retire many rounds: maybe_save counts rounds since the
+                # last snapshot)
+                if checkpointer is not None:
+                    checkpointer.maybe_save((labels, mask), round_no,
+                                            self.stats.as_dict())
             count, cap_need, mass_med, _ = sc
             if count == 0 or rounds_left <= 0:
                 break
@@ -531,9 +586,10 @@ class SparseLadderEngine:
                 pending = (budget, k, 0)
         return labels, mask
 
-    def _run_per_round(self, labels, mask, max_rounds: int):
+    def _run_per_round(self, labels, mask, max_rounds: int, checkpointer=None):
         g = self.g
-        for _ in range(max_rounds):
+        (labels, mask), rnd = resume_run(checkpointer, (labels, mask))
+        while rnd < max_rounds:
             count, cap_need, mass_med, mass_tot = fetch(fr.round_scalars(g, mask))
             if count == 0:
                 break
@@ -547,4 +603,7 @@ class SparseLadderEngine:
                 labels, mask, _ = self._sparse_fn(
                     g, labels, mask, capacity=cap, budget=budget)
                 self._settle(budget, 1)
+            rnd += 1
+            if checkpointer is not None:
+                checkpointer.maybe_save((labels, mask), rnd, self.stats.as_dict())
         return labels, mask

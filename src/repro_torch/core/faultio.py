@@ -20,8 +20,8 @@ a site name — the ones wired today:
   ``key`` is the shard id.
 * ``"round"``      — one engine round starting (``engine.run_host`` /
   ``engine.run_streamed``); ``key`` is the round number.
-* ``"ckpt_write"`` — a checkpoint snapshot being written (the reference's
-  ``RunCheckpointer``, not ported yet: ROADMAP queue 1, item 8: resume).
+* ``"ckpt_write"`` — a run checkpoint snapshot about to be written
+  (``checkpoint.RunCheckpointer.save``); ``key`` is the round.
 
 Fault kinds:
 

@@ -27,6 +27,7 @@ from repro.core.algorithms import pagerank as jpr  # noqa: E402
 from repro.core.algorithms import sssp as jsssp  # noqa: E402
 from repro.core.graph import from_coo as jfrom_coo  # noqa: E402
 from repro.graphs import generators as gen  # noqa: E402
+from repro_torch.checkpoint import RunCheckpointer  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.core.algorithms import bfs as tbfs  # noqa: E402
 from repro_torch.core.algorithms import cc as tcc  # noqa: E402
@@ -188,15 +189,23 @@ def test_run_dense_makes_one_fetch(algo):
         np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
 
 
-def test_run_host_fetches_once_a_round():
+def test_run_host_fetches_once_a_round(tmp_path):
     rounds, state = teng.run_host(lambda s: s + 1, torch.tensor(0),
                                   lambda s: s < 5, 100)
     assert (rounds, int(state)) == (5, 5)
     before = teng.fetch.calls
     teng.run_host(lambda s: s + 1, torch.tensor(0), lambda s: s < 5, 100)
     assert teng.fetch.calls - before == 6   # five rounds and the exit
-    with pytest.raises(NotImplementedError, match="item 8"):
-        teng.run_host(lambda s: s, 0, lambda s: False, 1, checkpointer=object())
+    # a checkpointer's snapshots add no fetch, and a resumed run goes on
+    # from the snapshot's round
+    ckr = RunCheckpointer(str(tmp_path), every=2)
+    before = teng.fetch.calls
+    assert teng.run_host(lambda s: s + 1, torch.tensor(0), lambda s: s < 5, 100,
+                         checkpointer=ckr)[0] == 5
+    assert teng.fetch.calls - before == 6 and ckr.saves == 2
+    rounds, state = teng.run_host(lambda s: s + 1, torch.tensor(0),
+                                  lambda s: s < 5, 100, checkpointer=ckr)
+    assert (rounds, int(state)) == (5, 5)
 
 
 @pytest.mark.parametrize("limit", [0, 1, 3, 7, 100])
