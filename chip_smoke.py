@@ -132,6 +132,26 @@ non-zero exit before its last line:
    warm pr_incremental under plain float add on both substrates, within
    PR_TOL (the cuda side's edge_relax over the log shards against the
    plain push);
+9h. multi-source traversal and the graph query server (``core/multisource``,
+   ``launch/graph_serve``, ``benchmarks/serving.py``): ``edge_relax_lanes``
+   against its plain version (``batched_push_ref`` / ``batched_relax_ref``)
+   at B = 8 on the web graph — push (a dense round) and batch (a union
+   advance) for f32 min weighted, f32 add unweighted and int32 min, the
+   batch case at B = 40 (two launches), and +inf seeds in two lanes —
+   bitwise but f32 add, each with its ms, bound, plain ms, one
+   ``scatter_reduce_`` over the flattened (B·n_pad) index (library_ms) and
+   B launches of ``edge_relax`` on the same rows; then, counts set to 0
+   just before and read just after, the serving suite on the web graph
+   from phase 3's source and seven seeded vertices with out-edges (8
+   per-source bfs and sssp runs, ``ms_bfs`` / ``ms_sssp`` with every lane
+   bitwise to its source's run and lane 0 to phase 6's bfs, the server's
+   16 ragged requests on 8 slots after a warm pass, each bitwise to its
+   source's run; qps, p50, p99 and both edges_per_source printed),
+   ``ms_ppr`` (lanes within PR_TOL of ``ppr_push``) and ``ms_bfs`` on kron
+   (bitwise to per-source runs); the three web runs again under "torch",
+   labels and RunStats equal (ppr: allclose, rounds within one); and
+   ``ms_ppr`` at 4 lanes under det add on phase 5's quickstart graph,
+   bitwise to ``ppr_push``;
 10. the other kernels at full width, each against its plain version on the
    card: bf16 flash attention against ``flash_attention_plain`` and
    ``attention_ref`` within rtol 8e-3 (one bf16 ulp) + 1e-3 x rms(want),
@@ -181,7 +201,7 @@ stretch ``while_loop``) has a line of its own before the kernels line,
 rounds of the path's stretch timed through the graph (``ms``) and through
 the plain Python loop (``plain_ms``), with the largest difference of their
 labels (``max_abs_err``).  A kernel's ``launches`` sum its cuda launches
-on every path (phases 6, 8, 9, 9c, 9e-9g, 11, 12; in 9f those of this
+on every path (phases 6, 8, 9, 9c, 9e-9h, 11, 12; in 9f those of this
 process, not of its children) and count the rounds a loop
 replays: a capture launches nothing, and each loop adds its captured
 round's launches for every round after its eager first one
@@ -197,7 +217,10 @@ whose work could take the tensor cores.  The graph kernels' bytes are what
 the inputs need: edge_relax reads src for each slot (each active one
 under a slot mask), dst for each slot that sends and w for each active
 one (``bound_all_slots_ms`` counts every slot's, the formula of earlier
-runs); advance reads the live entries' f_idx, degree and row_ptr.  A bf16 flash row also prints
+runs); edge_relax_lanes the same per slot (w for each slot some lane
+sends from), the frontier and its three (B, n_pad) lane arrays once, and
+counts one operation per message; advance reads the live entries' f_idx,
+degree and row_ptr.  A bf16 flash row also prints
 ``tflops`` (those 4 d operations per unmasked pair over the kernel's
 time), ``tc_flops`` (the 6 d per pair the kernel runs: p @ v twice, for
 p's bf16 hi and lo halves) and ``route``.
@@ -440,6 +463,14 @@ def beyond_neutral(torch, x, kind):
     return key > 0x7F7FFFFF if kind == "min" else key < -0x7F800000
 
 
+def distinct_sources(torch, idx, n_pad):
+    """How many distinct vertices ``idx`` names: the src_val elements a
+    relax must gather once for those slots."""
+    seen = torch.zeros(n_pad, dtype=torch.bool, device=idx.device)
+    seen[idx] = True
+    return int(seen.sum())
+
+
 def run_edge_relax_case(torch, gk, name, kw):
     kind, use_w, vm = kw["kind"], kw["use_weight"], kw["vertex_mask"]
     args = (kw["src"], kw["dst"], kw["w"], kw["mask"], kw["src_val"], kw["out_init"])
@@ -492,14 +523,16 @@ def run_edge_relax_case(torch, gk, name, kw):
     # bound: what these inputs need read — src for every slot (for the
     # active ones under a slot mask), the mask, dst for each slot that sends
     # (the active ones, and every masked one when a seed lies beyond the
-    # neutral), w for the active ones — and the vertex arrays once
+    # neutral), w for the active ones, src_val at the distinct sources of
+    # the active slots — and out_init read and out written once
     m, n_pad = src.shape[0], args[5].shape[0]
     s = args[5].element_size()
     n_act = int(keep.sum())
+    n_gathered = distinct_sources(torch, src[keep], n_pad)
     clamp = bool(beyond_neutral(torch, args[5], kind).any())
     n_send = m if clamp else n_act
     nbytes = ((4 * m if vm else 4 * n_act) + (n_pad if vm else m) + 4 * n_send
-              + (4 * n_act if use_w else 0) + 3 * n_pad * s)
+              + (4 * n_act if use_w else 0) + s * n_gathered + 2 * n_pad * s)
     b_ms, b_by = bound_ms(nbytes, m)
     all_slots_ms, _ = bound_ms(m * (4 + 4 + (4 if use_w else 0) + (0 if vm else 1))
                                + n_pad * ((1 if vm else 0) + 3 * s), m)
@@ -575,7 +608,9 @@ def run_advance_case(torch, gk, fr, g, name, mask, cap, budget):
 # ---- the profile of a path by kernel -----------------------------------------
 
 # the profile's families: a fragment of a kernel's name -> its family
-PROFILE_FAMILIES = (("edge_relax", "edge_relax"), ("relax_seed", "edge_relax"),
+PROFILE_FAMILIES = (("edge_relax_lanes", "edge_relax_lanes"),
+                    ("lanes_seed", "edge_relax_lanes"),
+                    ("edge_relax", "edge_relax"), ("relax_seed", "edge_relax"),
                     ("advance_", "advance"), ("intersect_", "intersect"))
 
 
@@ -628,7 +663,7 @@ def event_profile(torch, gk, runs):
     """The runs with a CUDA event pair around each call of a graph_ops
     wrapper (the operator seam looks them up on the package at each call);
     rows by case, dtype and kind."""
-    names = ("edge_relax", "advance_frontier", "intersect_count")
+    names = ("edge_relax", "edge_relax_lanes", "advance_frontier", "intersect_count")
     saved = {n: getattr(gk, n) for n in names}
     marks = []
 
@@ -1871,6 +1906,350 @@ def dynamic_phase(torch, np, gk, ops, store, pagerank, dynamic_bench, gsym, sour
     return launches
 
 
+# ---- phase 9h: multi-source traversal and the graph query server ------------
+
+MS_SEED = 19                   # the seven random lanes beside phase 3's source
+MS_WIDE = 40                   # lanes of the two-launch kernel case (groups of 32)
+MS_DET_LANES = 4               # 9h c: ms_ppr lanes under det add, quickstart graph
+
+
+def lanes_cases(torch, g, fr, gk, gen):
+    """(name, kwargs of ``edge_relax_lanes``) on the web graph: push over the
+    CSR (a dense round: each lane's frontier a tenth of the vertices, so
+    the union's mass passes the dense cutoff) and batch over the advance
+    output of a sparse union (a quarter percent a lane, the budget the
+    ladder picks for its mass); f32 min weighted (bfs, sssp), f32 add
+    unweighted (ppr), int32 min; B = 8, the batch case once at MS_WIDE
+    lanes (two launches), and +inf seeds in two lanes (the clamp).  The
+    first case is the kernel's table case."""
+    dev = g.device
+    n_pad, m_pad = g.n_pad, g.m_pad
+
+    def frontier(b, p):
+        f = torch.rand((b, n_pad), generator=gen, device=dev) < p
+        f[:, g.sentinel] = False
+        return f
+
+    def signed(b, inf_lanes=()):
+        x = torch.randn((b, n_pad), generator=gen, device=dev) * 4
+        pick = torch.rand((b, n_pad), generator=gen, device=dev)
+        x = torch.where(pick < 0.05, torch.tensor(-0.0, device=dev), x)
+        for lane in inf_lanes:   # unreached vertices: seeds beyond the neutral
+            x[lane] = torch.where(pick[lane] > 0.7, torch.tensor(float("inf"), device=dev),
+                                  x[lane])
+        return x
+
+    def mass(b):
+        return torch.rand((b, n_pad), generator=gen, device=dev) / g.n
+
+    def advanced(active):
+        union = active.any(0)
+        cap = fr.pick_capacity(int(union.sum()), fr.ladder_capacities(n_pad, g.block_size))
+        budget = fr.pick_capacity(int(g.budget_edge_mass(union)),
+                                  fr.ladder_capacities(m_pad, g.block_size))
+        f = fr.compact(union, cap, g.sentinel)
+        src, dst, w, valid, _ = gk.advance_frontier(
+            f.idx, f.count, g.out_deg, g.row_ptr, g.col_idx, g.edge_w, budget=budget,
+            sentinel=g.sentinel, m_pad=m_pad)
+        return dict(src=src, dst=dst, w=w, valid=valid), budget
+
+    csr = dict(src=g.src_idx, dst=g.col_idx, w=g.edge_w, valid=None)
+    dense8 = frontier(8, 0.1)
+    sparse8 = frontier(8, 0.0025)
+    batch8, budget8 = advanced(sparse8)
+    wide = frontier(MS_WIDE, 0.0025)
+    batch_wide, budget_wide = advanced(wide)
+    i32 = torch.randint(0, 2**20, (8, n_pad), generator=gen, device=dev, dtype=torch.int32)
+    return [
+        ("push f32 min weighted, B=8 (dense round)", dict(
+            **csr, active=dense8, src_val=signed(8), out_init=signed(8), kind="min",
+            use_weight=True)),
+        (f"batch f32 min weighted, B=8 (union advance, budget {budget8})", dict(
+            **batch8, active=sparse8, src_val=signed(8), out_init=signed(8), kind="min",
+            use_weight=True)),
+        ("push f32 add unweighted, B=8 (ppr dense round)", dict(
+            **csr, active=dense8, src_val=mass(8), out_init=torch.zeros((8, n_pad), device=dev),
+            kind="add", use_weight=False)),
+        (f"batch f32 add unweighted, B=8 (ppr, budget {budget8})", dict(
+            **batch8, active=sparse8, src_val=mass(8),
+            out_init=torch.zeros((8, n_pad), device=dev), kind="add", use_weight=False)),
+        ("push i32 min unweighted, B=8", dict(
+            **csr, active=dense8, src_val=i32, out_init=i32.flip(0).contiguous(), kind="min",
+            use_weight=False)),
+        (f"batch i32 min unweighted, B=8 (budget {budget8})", dict(
+            **batch8, active=sparse8, src_val=i32, out_init=i32.flip(0).contiguous(),
+            kind="min", use_weight=False)),
+        (f"batch f32 min weighted, B={MS_WIDE} (two launches, budget {budget_wide})", dict(
+            **batch_wide, active=wide, src_val=signed(MS_WIDE), out_init=signed(MS_WIDE),
+            kind="min", use_weight=True)),
+        ("push f32 min weighted, B=8, +inf seeds in lanes 1 and 5 (the clamp)", dict(
+            **csr, active=dense8, src_val=signed(8), out_init=signed(8, (1, 5)), kind="min",
+            use_weight=True)),
+        (f"batch f32 min weighted, B=8, +inf seeds in lanes 1 and 5 (budget {budget8})", dict(
+            **batch8, active=sparse8, src_val=signed(8), out_init=signed(8, (1, 5)),
+            kind="min", use_weight=True)),
+    ]
+
+
+def run_lanes_case(torch, gk, name, kw):
+    """``edge_relax_lanes`` against ``batched_push_ref`` / ``batched_relax_ref``
+    on the card: bitwise, f32 add within ADD_RTOL_OF_ABS_SUM of each
+    output's terms; its ms, the plain version's, one ``scatter_reduce_``
+    over the flattened (B·n_pad) index of the ready messages (library_ms),
+    B launches of ``edge_relax`` on the same rows (per_lane_edge_relax_ms),
+    and the bound of the bytes this input needs."""
+    kind, use_w, valid = kw["kind"], kw["use_weight"], kw["valid"]
+    src, dst, w, active, sv, init = (kw[k] for k in ("src", "dst", "w", "active",
+                                                     "src_val", "out_init"))
+    b, n_pad = init.shape
+    m = src.shape[0]
+
+    def kernel():
+        return gk.edge_relax_lanes(src, dst, w, active, sv, init, valid=valid, kind=kind,
+                                   use_weight=use_w)
+
+    def plain():
+        if valid is None:
+            return gk.batched_push_ref(src, dst, w, sv, active, init, kind, use_w)
+        return gk.batched_relax_ref(src, dst, w, valid, sv, active, init, kind, use_w)
+
+    before = gk.edge_relax_lanes.launches
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    launches = gk.edge_relax_lanes.launches - before
+    check(launches == -(-b // 32), f"lanes {name}: {launches} launches counted")
+    keep = active[:, src] if valid is None else valid & active[:, src]    # (B, m)
+    msg = gk.edge_message(sv[:, src], w, kind, use_w)
+    float_add = kind == "add" and init.dtype == torch.float32
+    if float_add:
+        terms = torch.where(keep, msg, 0.0).abs()
+        scale = torch.zeros_like(want).index_add_(1, dst, terms) + init.abs()
+        err = (got - want).abs()
+        check(bool((err <= ADD_RTOL_OF_ABS_SUM * scale + 1e-30).all()),
+              f"lanes {name}: add outside tolerance (max err {float(err.max())})")
+        max_err = float(err.max())
+        del terms, scale, err
+    else:
+        check(torch.equal(bits(torch, got), bits(torch, want)),
+              f"lanes {name}: kernel and plain version differ bitwise")
+        max_err = 0.0
+    del got, want
+    # library yardstick: one scatter_reduce_ over the flattened lane index
+    reduce = {"min": "amin", "max": "amax", "add": "sum"}[kind]
+    flat_msg = torch.where(keep, msg.to(init.dtype), gk.neutral_for(kind, init.dtype).item())
+    flat_msg = flat_msg.reshape(-1)
+    flat_idx = (torch.arange(b, device=src.device)[:, None] * n_pad
+                + dst.long()[None, :]).reshape(-1)
+    buf = init.clone().reshape(-1)
+    del msg
+    # the per-lane route: B launches of edge_relax on the same rows
+    masks = keep if valid is not None else None
+
+    def per_lane():
+        for i in range(b):
+            if masks is None:
+                gk.edge_relax(src, dst, w, active[i], sv[i], init[i], kind=kind,
+                              use_weight=use_w, vertex_mask=True)
+            else:
+                gk.edge_relax(src, dst, w, masks[i], sv[i], init[i], kind=kind,
+                              use_weight=use_w, vertex_mask=False, case="batch")
+
+    t_k = cuda_ms(torch, kernel)
+    t_p = cuda_ms(torch, plain)
+    t_l = cuda_ms(torch, lambda: buf.scatter_reduce_(0, flat_idx, flat_msg, reduce))
+    t_r = cuda_ms(torch, per_lane)
+    del flat_msg, flat_idx, buf, masks
+    work = lanes_work(torch, src, valid, keep, init, kind, use_w)
+    b_ms, b_by = bound_ms(work["bytes"], work["messages"])
+    return dict(case=name, lanes=b, launches=launches, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                per_lane_edge_relax_ms=t_r, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max_err, compare="allclose" if float_add else "bitwise",
+                slots=m, slots_sending=work["slots_sending"], messages=work["messages"],
+                gathered=work["gathered"], clamped_lanes=work["clamped_lanes"])
+
+
+def lanes_work(torch, src, valid, keep, init, kind, use_w):
+    """What a lane relax over these inputs must move, each input once:
+    src for each slot (each valid one under a slot mask, whose 1-B mask is
+    read for every slot); the frontier at the distinct sources of those
+    slots, one byte a lane; dst for each slot that sends (every slot in a
+    clamped lane); w for each slot some lane sends from; src_val at the
+    distinct (lane, source) pairs that send; out_init read and out written
+    once.  ``keep`` is the (B, m) send mask.  Messages: one per sending
+    pair of (lane, slot), and every slot of a clamped lane."""
+    b, n_pad = init.shape
+    m = src.shape[0]
+    s = init.element_size()
+    read = src if valid is None else src[valid]
+    clamp = beyond_neutral(torch, init, kind).any(1)
+    n_any = int(keep.any(0).sum())
+    n_send = m if bool(clamp.any()) else n_any
+    gathered = sum(distinct_sources(torch, src[keep[i]], n_pad) for i in range(b))
+    n_msgs = int(keep.sum()) + int(clamp.sum()) * m
+    nbytes = (4 * read.shape[0] + (0 if valid is None else m)
+              + b * distinct_sources(torch, read, n_pad) + 4 * n_send
+              + (4 * n_any if use_w else 0) + s * gathered + 2 * b * n_pad * s)
+    return dict(bytes=nbytes, messages=n_msgs, slots_sending=n_send, gathered=gathered,
+                clamped_lanes=int(clamp.sum()))
+
+
+def ms_sources(np, g, source, seed):
+    """Phase 3's source as lane 0, then seven seeded random vertices with
+    out-edges."""
+    deg = g.out_deg[: g.n].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    return [source] + [int(v) for v in rng.choice(np.flatnonzero(deg > 0), 7,
+                                                  replace=False)]
+
+
+def stats_equal(name, da, db, sweep=None):
+    """RunStats dicts equal but ``substrate``.  Given ``sweep``, one
+    round's dense sweep (ppr: the frontier is ``resid > tol`` over float
+    sums taken in another order), the rounds may differ by one and
+    ``edges_touched`` by one sweep; every other counter stays equal."""
+    keys = [k for k in db if k != "substrate"]
+    da, db = {k: da[k] for k in keys}, {k: db[k] for k in keys}
+    if sweep is not None and da != db:
+        print(f"  {name}: cuda {da} vs torch {db}", flush=True)
+        check(abs(da["rounds"] - db["rounds"]) <= 1, f"{name}: rounds differ by more than one")
+        check(abs(da["edges_touched"] - db["edges_touched"]) <= sweep,
+              f"{name}: edges_touched differ by more than one sweep ({sweep})")
+        for d in (da, db):
+            for k in ("rounds", "sparse_rounds", "dense_rounds", "edges_touched"):
+                d.pop(k)
+    check(da == db, f"{name}: RunStats differ: {da} vs {db}")
+
+
+def serving_phase(torch, np, tc, gk, ops, fr, ms, serving, bfs, pagerank, gen_mod, g, kg,
+                  source, ksource, bfs_ref):
+    """9h: multi-source traversal and the graph query server at full width.
+    a. ``edge_relax_lanes`` against its plain version (``lanes_cases``);
+    b. on the web graph, from phase 3's source and seven seeded vertices,
+       ``benchmarks/serving.py`` (warm-up 1, one timed call): 8 per-source
+       bfs and sssp runs, ``ms_bfs`` and ``ms_sssp`` (every lane bitwise to
+       its source's run, lane 0 to phase 6's bfs), the server's 16 ragged
+       requests on 8 slots after a warm pass (each bitwise to its source's
+       run); ``ms_ppr`` (lanes within PR_TOL of ``ppr_push``); then the
+       three under "torch", labels and RunStats equal; ``ms_bfs`` on kron
+       (``kg``, unweighted) bitwise to per-source runs;
+    c. ``ms_ppr`` at MS_DET_LANES lanes under det add on phase 5's
+       quickstart graph, each lane bitwise to ``ppr_push``.
+    The cuda runs of b are the path: counts set to 0 just before, read
+    just after.  Returns ``(kernel rows, launches)``."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rng = torch.Generator(device="cuda").manual_seed(MS_SEED)
+    rows = []
+    for name, kw in lanes_cases(torch, g, fr, gk, rng):
+        row = run_lanes_case(torch, gk, name, kw)
+        rows.append(row)
+        print("  edge_relax_lanes " + json.dumps(row), flush=True)
+        del kw
+    torch.cuda.empty_cache()
+    print(f"9h a: {time.perf_counter() - t0} s", flush=True)
+
+    sources = ms_sources(np, g, source, MS_SEED)
+    ksources = ms_sources(np, kg, ksource, MS_SEED)
+    print(f"9h sources: web {sources}, kron {ksources}", flush=True)
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    results = {}
+    srows = serving.run(graphs=(g, sources), warmup=1, iters=1, results=results)
+    t_suite = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppr, ppr_st = ms.ms_ppr(g, sources)
+    torch.cuda.synchronize()
+    t_ppr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kdist, kst = ms.ms_bfs(kg, ksources)
+    torch.cuda.synchronize()
+    t_kron = time.perf_counter() - t0
+    launches = gk.launch_counts()
+    print(f"9h launches (cuda): {json.dumps(launches)}", flush=True)
+    for k in ("edge_relax_lanes", "advance", "edge_relax"):
+        check(launches[k] > 0, f"9h: kernel {k} was not launched")
+    by = {r[0]: r for r in srows}
+    for name, us, derived, stats in srows:
+        print(f"  9h {name} us={us} {derived} {json.dumps(stats)}", flush=True)
+    for algo in ("bfs", "sssp"):
+        seq, bat = by[f"serving/seq_{algo}"][3], by[f"serving/batched_{algo}_b8"][3]
+        check(bat["bitwise_equal"] == 1 and torch.equal(
+            results[f"serving/seq_{algo}"], results[f"serving/batched_{algo}_b8"]),
+            f"9h ms_{algo}: a lane differs from its source's {algo}_dd_sparse")
+        check(bat["substrate"] == "cuda" and bat["sources"] == 8,
+              f"9h ms_{algo}: substrate {bat['substrate']}, sources {bat['sources']}")
+        print(f"9h {algo}: edges_per_source sequential {seq['edges_per_source']} batched "
+              f"{bat['edges_per_source']} ratio "
+              f"{bat['edges_per_source'] / seq['edges_per_source']} (the JAX ci_gate serve "
+              f"asks <= 0.5 at its suite's size; printed here, not asserted)", flush=True)
+    check(torch.equal(results["serving/batched_bfs_b8"][0], bfs_ref),
+          "9h ms_bfs: lane 0 differs from phase 6's bfs_dd_sparse")
+    seq_bfs = results["serving/seq_bfs"]
+    for r in results["serving/server_bfs"]:
+        check(r.reject_reason is None and torch.equal(
+            torch.from_numpy(r.labels), seq_bfs[sources.index(r.source)].cpu()),
+            f"9h server: request {r.rid} differs from its source's bfs_dd_sparse")
+    srv = by["serving/server_bfs"][3]
+    print(f"9h server: {srv['requests']} requests on {srv['max_batch']} slots, "
+          f"qps {srv['qps']} p50_us {srv['p50_us']} p99_us {srv['p99_us']} "
+          f"(after a warm pass; NVIDIA card, see the environment line)", flush=True)
+    for i, s in enumerate(sources):
+        want, _ = pagerank.ppr_push(g, s)
+        check(torch.allclose(ppr[i], want, rtol=PR_TOL[0], atol=PR_TOL[1]),
+              f"9h ms_ppr: lane {i} outside PR_TOL of ppr_push")
+    print(f"9h ms_ppr web: {t_ppr} s {json.dumps(ppr_st.as_dict())}", flush=True)
+    seq_edges = 0
+    for i, s in enumerate(ksources):
+        kd, kseq = bfs.bfs_dd_sparse(kg, s)
+        seq_edges += kseq.edges_touched
+        check(torch.equal(kdist[i], kd), f"9h ms_bfs kron: lane {i} differs from its source's run")
+    print(f"9h ms_bfs kron: {t_kron} s {json.dumps(kst.as_dict())}; edges_per_source "
+          f"sequential {seq_edges / len(ksources)} batched {kst.edges_touched / kst.sources} "
+          f"ratio {kst.edges_touched / seq_edges}", flush=True)
+
+    t0 = time.perf_counter()
+    before = gk.launch_counts()
+    with ops.substrate_scope("torch"):
+        tb, tbs = ms.ms_bfs(g, sources)
+        ts, tss = ms.ms_sssp(g, sources)
+        tp, tps = ms.ms_ppr(g, sources)
+    check(gk.launch_counts() == before, "9h: the torch substrate launched a kernel")
+    check(torch.equal(tb, results["serving/batched_bfs_b8"])
+          and torch.equal(ts, results["serving/batched_sssp_b8"]),
+          "9h: torch lanes differ from cuda lanes")
+    check(torch.allclose(tp, ppr, rtol=PR_TOL[0], atol=PR_TOL[1]),
+          "9h: torch ppr lanes outside PR_TOL of cuda's")
+    stats_equal("9h ms_bfs", by["serving/batched_bfs_b8"][3], tbs.as_dict())
+    stats_equal("9h ms_sssp", by["serving/batched_sssp_b8"][3], tss.as_dict())
+    stats_equal("9h ms_ppr", ppr_st.as_dict(), tps.as_dict(), sweep=g.m)
+    t_torch = time.perf_counter() - t0
+    print(f"9h torch substrate: {t_torch} s, labels and RunStats equal", flush=True)
+    # the batched runs once more on the "cuda" substrate, device time by kernel
+    runs = {"ms_bfs": Run(lambda: ms.ms_bfs(g, sources)),
+            "ms_sssp": Run(lambda: ms.ms_sssp(g, sources)),
+            "ms_ppr": Run(lambda: ms.ms_ppr(g, sources))}
+    with ops.substrate_scope("cuda"):
+        print_profile(torch, gk, "serving", runs,
+                      (by["serving/batched_bfs_b8"][1] + by["serving/batched_sssp_b8"][1])
+                      / 1e3 + t_ppr * 1e3)
+
+    t0 = time.perf_counter()
+    src, dst, n = gen_mod.web_crawl_like(16, 5, 8, 2, seed=0)
+    w = gen_mod.random_weights(len(src), seed=1)
+    small = tc.from_coo(src, dst, n, w, build_csc=True)
+    det_sources = [int(v) for v in np.random.default_rng(MS_SEED).integers(0, n, MS_DET_LANES)]
+    with ops.deterministic_add_scope(True):
+        dr, _ = ms.ms_ppr(small, det_sources)
+        for i, s in enumerate(det_sources):
+            check(torch.equal(bits(torch, dr[i]), bits(torch, pagerank.ppr_push(small, s)[0])),
+                  f"9h c: det-add ms_ppr lane {i} differs bitwise from ppr_push")
+    print(f"9h c: det-add ms_ppr, {MS_DET_LANES} lanes on the quickstart graph (n={n}), "
+          f"bitwise to ppr_push, in {time.perf_counter() - t0} s", flush=True)
+    print(f"9h: {time.perf_counter() - t_phase} s (suite {t_suite}, ms_ppr {t_ppr}, "
+          f"kron {t_kron}, torch substrate {t_torch})", flush=True)
+    return rows, launches
+
+
 # ---- phases 10-12: flash attention, spmm_bsr, embedding_bag, the layer and --
 # ---- the kernels_bench entry point -------------------------------------------
 
@@ -2311,7 +2690,9 @@ def bench_check(torch, kern, kernels_bench):
     check(rows[-1][0] == "kern/graph_bfs_e2e[cuda]" and derived["substrate"] == "cuda",
           f"kernels_bench: the cuda BFS row says {rows[-1][2]}")
     for name, count in launches.items():
-        check(count > 0, f"kernels_bench: kernel {name} was not launched")
+        # the JAX suite has no multi-source row: edge_relax_lanes is 9h's
+        check(count > 0 or name == "edge_relax_lanes",
+              f"kernels_bench: kernel {name} was not launched")
     print(f"kernels_bench: {len(rows)} rows in {secs} s, launches {json.dumps(launches)}",
           flush=True)
     return launches
@@ -2348,8 +2729,9 @@ def main() -> int:
     from repro_torch import checkpoint as store
     from repro_torch.benchmarks import algo_classes, frameworks, granularity, kernels_bench
     from repro_torch.benchmarks import dynamic as dynamic_bench
-    from repro_torch.benchmarks import memtier
+    from repro_torch.benchmarks import memtier, serving
     from repro_torch.core import engine as eng
+    from repro_torch.core import multisource as ms
     from repro_torch.core import tiered
     from repro_torch.kernels import device_loop as dl
     from repro_torch.kernels import build
@@ -2568,6 +2950,12 @@ def main() -> int:
         for d in (directory, directory.parent / f"{directory.name}_dynamic",
                   directory.parent / f"{directory.name}_ckpt"):
             shutil.rmtree(d, ignore_errors=True)
+
+    # 9h. multi-source traversal and the graph query server
+    torch.cuda.empty_cache()
+    lanes_rows, ms_launches = serving_phase(
+        torch, np, tc, gk, ops, fr, ms, serving, bfs, pagerank, gen_mod, g, kg_unw, source,
+        ksource, cuda_runs["bfs_dd_sparse"][0])
     del refs
     del (g, gsym, kg, kg_unw, kgsym, main_runs, cuda_runs, torch_runs, kw, mask)
     torch.cuda.empty_cache()
@@ -2603,7 +2991,7 @@ def main() -> int:
     # every path's cuda launches: the three graph paths count graph_ops only
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,
                                                 suite_launches, resume_launches,
-                                                dyn_launches, layer_launches,
+                                                dyn_launches, ms_launches, layer_launches,
                                                 bench_launches))
              for k in bench_launches}
     total["edge_relax"] += ooc_relax
@@ -2619,6 +3007,10 @@ def main() -> int:
     kernels = [
         entry("edge_relax", src_file, "src/repro/kernels/graph_ops/graph_ops.py:65",
               max(r["max_abs_err"] for r in relax_rows), main_relax),
+        entry("edge_relax_lanes", src_file,
+              "src/repro/kernels/graph_ops/graph_ops.py:65 (vmapped at "
+              "src/repro/core/operators.py:349)",
+              max(r["max_abs_err"] for r in lanes_rows), lanes_rows[0]),
         entry("advance", src_file, "src/repro/kernels/graph_ops/graph_ops.py:162", 0.0,
               main_adv),
         entry("intersect", src_file, "src/repro/kernels/graph_ops/graph_ops.py:117",

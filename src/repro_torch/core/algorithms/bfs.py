@@ -6,6 +6,8 @@
 * ``bfs_dd_sparse`` data-driven, sparse worklist via the capacity ladder.
 * ``bfs_dirop``     direction-optimizing (Beamer).
 * ``bfs_incremental`` re-converges after a ``dynamic.DeltaBatch``.
+* ``bfs_batch``     ``bfs_dd_sparse`` from B sources at once
+                    (core/multisource.py).
 
 Distances are float32; the relax carries the graph's edge weights.
 """
@@ -246,6 +248,14 @@ def bfs_dirop(g: Graph, src: int, max_rounds: int = 100_000,
     stats = RunStats.from_graph(g, rounds=rounds, edges_touched=work,
                                 dense_rounds=rounds, pull_rounds=pulls)
     return dist, stats
+
+
+def bfs_batch(g: Graph, sources, max_rounds: int = 100_000):
+    """Multi-source BFS: B concurrent sources share every edge sweep
+    (``core/multisource.py``).  Row b is bitwise equal to
+    ``bfs_dd_sparse(g, sources[b])``'s labels."""
+    from .. import multisource as ms
+    return ms.ms_distances(g, sources, INF, max_rounds)
 
 
 VARIANTS = {

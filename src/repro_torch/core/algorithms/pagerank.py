@@ -6,6 +6,7 @@
 * ``pr_push``  residual push (PR-Delta): only vertices with residual > tol
                push.  Converges to the same fixpoint.
 * ``ppr_push`` personalized PageRank by residual push from one source.
+* ``ppr_batch`` ``ppr_push`` from B sources at once (core/multisource.py).
 * ``pr_incremental`` the residual push carried across the update batches of
                a ``dynamic.DynamicGraph``.
 """
@@ -258,6 +259,16 @@ def ppr_push(g: Graph, src: int, damping: float = 0.85, tol: float = 1e-9,
     rank = rank + resid
     rank = rank / rank.sum()
     return torch.where(valid, rank, 0.0), _dense_stats(g, rounds)
+
+
+def ppr_batch(g: Graph, sources, damping: float = 0.85, tol: float = 1e-9,
+              max_rounds: int = 10_000):
+    """Batched personalized PageRank over B concurrent sources
+    (``core/multisource.py``): one edge sweep per round serves every lane.
+    Row b matches ``ppr_push(g, sources[b])`` (bitwise under deterministic
+    add, allclose otherwise)."""
+    from .. import multisource as ms
+    return ms.ms_ppr(g, sources, damping, tol, max_rounds)
 
 
 VARIANTS = {"pull": pr_pull, "push": pr_push}

@@ -3,6 +3,8 @@
 * ``sssp_bellman_ford`` topology-driven rounds over all edges.
 * ``sssp_dd_dense``     data-driven with a dense worklist.
 * ``sssp_dd_sparse``    chaotic relaxation over the sparse ladder.
+* ``sssp_batch``        ``sssp_dd_sparse`` from B sources at once
+                        (core/multisource.py).
 * ``sssp_delta``        delta-stepping over priority buckets: light edges
                         relaxed until the bucket drains, then one heavy pass.
 """
@@ -67,6 +69,14 @@ def sssp_dd_sparse(g: Graph, src: int, max_rounds: int = 100_000,
                              fused=fused)
     dist, _ = eng.run(_init_dist(g, src), _source_mask(g, src), max_rounds)
     return dist, eng.stats
+
+
+def sssp_batch(g: Graph, sources, max_rounds: int = 100_000):
+    """Multi-source SSSP: B concurrent sources share every edge sweep
+    (``core/multisource.py``).  Row b is bitwise equal to
+    ``sssp_dd_sparse(g, sources[b])``'s labels."""
+    from .. import multisource as ms
+    return ms.ms_distances(g, sources, INF, max_rounds)
 
 
 def sssp_delta(g: Graph, src: int, delta: float = 4.0,

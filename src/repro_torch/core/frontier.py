@@ -153,3 +153,39 @@ def live_stable(sg, mask: torch.Tensor) -> torch.Tensor:
     re-derive the ladder's."""
     _, live = sg.round_live(mask)
     return torch.all(live == sg.live)
+
+
+# ---------------------------------------------------------------------------
+# Multi-source batched frontiers (core/multisource.py)
+# ---------------------------------------------------------------------------
+# The batched frontier is a (B, n_pad) bool bit-matrix: row b is lane b's
+# dense frontier.  The ladder keys on the *union* row — one edge sweep per
+# round expands the union worklist, with per-lane masks restoring each
+# lane's message set — and per-lane termination is the row-wise any().
+
+
+def batched_from_sources(sources: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """(B, n_pad) one-hot frontier bit-matrix, one source per lane, on
+    ``sources``' device; the sentinel column never activates.  Built by a
+    scatter and a column fill on the device, no host scalar copied over."""
+    src = sources.long().view(-1, 1)
+    fmat = torch.zeros((src.shape[0], n_pad), dtype=torch.bool, device=src.device)
+    fmat.scatter_(1, src, True)
+    fmat[:, n_pad - 1].fill_(False)
+    return fmat
+
+
+def batched_round_scalars(g, fmat: torch.Tensor):
+    """Ladder scalars for one batched round, as device tensors for one
+    ``engine.fetch``: ``(total, ucount, umass, alive)`` —
+
+    * ``total``  Σ over lanes of frontier sizes (global termination);
+    * ``ucount`` union-frontier size: what the shared capacity rung holds;
+    * ``umass``  union-frontier budget mass (``g.budget_edge_mass``);
+    * ``alive``  (B,) bool, per-lane termination."""
+    union = fmat.any(0)
+    total = fmat.sum(dtype=torch.int32)
+    ucount = union.sum(dtype=torch.int32)
+    umass = g.budget_edge_mass(union)
+    alive = fmat.any(1)
+    return total, ucount, umass, alive

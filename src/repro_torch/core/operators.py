@@ -31,8 +31,11 @@ On an out-of-core graph (``core/tiered.py``: a ``TieredGraph``, or the
 ``StagedShards`` of a streamed stretch) ``push_dense`` and ``pull_dense``
 stream the shards the mask needs through the device buffer pool, and
 ``sparse_round`` lowers to that masked push: the schedule already is the
-frontier's shard set.  The sharded and batched branches belong to later
-slices of the port; they raise ``NotImplementedError``.
+frontier's shard set.  The sharded branches belong to a later slice of
+the port (ROADMAP queue 1, item 11); they raise ``NotImplementedError``.
+The batched operators (``batched_push_dense``, ``batched_relax_batch``:
+core/multisource.py) relax B lanes of (B, n_pad) labels over one read of
+the edge list.
 """
 
 from __future__ import annotations
@@ -265,13 +268,80 @@ def relax_edges(
                         out_init, kind, use_weight)
 
 
-def batched_push_dense(*args, **kwargs):
-    raise NotImplementedError(
-        "multi-source batched relax is not ported yet "
-        "(ROADMAP queue 1: multi-source + serving)")
+def batched_push_dense(
+    g: Graph,
+    src_val: torch.Tensor,
+    active: torch.Tensor,
+    out_init: torch.Tensor,
+    kind: str = "min",
+    use_weight: bool = True,
+    substrate: str | None = None,
+) -> torch.Tensor:
+    """Multi-source ``push_dense``: relax every edge once for B lanes.
+
+    ``src_val`` / ``active`` / ``out_init`` are (B, n_pad) lane matrices
+    (row b = lane b's labels / frontier / accumulator).  The edge list is
+    read ONCE per sweep for all B lanes (the MS-BFS amortisation,
+    core/multisource.py).  Per lane the result is bitwise ``push_dense``'s
+    on that lane's row:
+
+    * cuda  — the ``edge_relax_lanes`` kernel;
+    * torch — ``batched_push_ref`` (axis-1 scatter, shared dst vector);
+    * det add — the fixed-order tree, lane by lane.
+
+    Tiered (out-of-core) graphs are refused: serving batches run on
+    resident graphs."""
+    sub = _resolve(substrate)
+    if getattr(g, "is_tiered", False):
+        raise NotImplementedError(
+            "batched multi-source relax needs the whole CSR resident; "
+            "the tiered streaming path is per-query")
+    _single_graph(g, "batched_push_dense")
+    if kind == "add" and _deterministic_add:
+        return torch.stack([
+            gk.det_push_ref(g.src_idx, g.col_idx, g.edge_w, v, a, o, use_weight)
+            for v, a, o in zip(src_val, active, out_init)])
+    if sub == "cuda":
+        return gk.edge_relax_lanes(g.src_idx, g.col_idx, g.edge_w, active,
+                                   src_val, out_init, kind=kind,
+                                   use_weight=use_weight)
+    return gk.batched_push_ref(g.src_idx, g.col_idx, g.edge_w, src_val,
+                               active, out_init, kind, use_weight)
 
 
-batched_relax_batch = batched_push_dense
+def batched_relax_batch(
+    batch: EdgeBatch,
+    src_val: torch.Tensor,
+    active: torch.Tensor,
+    out_init: torch.Tensor,
+    kind: str = "min",
+    use_weight: bool = True,
+    substrate: str | None = None,
+) -> torch.Tensor:
+    """Multi-source ``relax_batch``: one sparse advance (over the lanes'
+    *union* frontier) relaxed for B lanes at once.  A slot fires in lane b
+    iff it is valid AND its source is active in lane b's row, which
+    restores exactly lane b's message multiset, so each row is bitwise the
+    single-lane sparse round's."""
+    sub = _resolve(substrate)
+    if kind == "add" and _deterministic_add:
+        masks = batch.valid & active[:, batch.src]
+        return torch.stack([
+            gk.det_relax_ref(batch.src, batch.dst, batch.w, k, v, o, use_weight)
+            for k, v, o in zip(masks, src_val, out_init)])
+    if sub == "cuda":
+        return gk.edge_relax_lanes(batch.src, batch.dst, batch.w, active,
+                                   src_val, out_init, valid=batch.valid,
+                                   kind=kind, use_weight=use_weight)
+    return gk.batched_relax_ref(batch.src, batch.dst, batch.w, batch.valid,
+                                src_val, active, out_init, kind, use_weight)
+
+
+def batched_updated_mask(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Per-lane ``updated_mask``: (B, n_pad) rows of changed labels."""
+    m = new != old
+    m[:, -1].fill_(False)  # sentinel never activates
+    return m
 
 
 def intersect_batch(

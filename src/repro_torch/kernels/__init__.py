@@ -5,12 +5,13 @@ attention its bf16 launches, on the tensor cores, in ``.tc_launches``)."""
 
 from .embedding_bag.embedding_bag import embedding_bag
 from .flash_attention.flash_attention import flash_attention_bhsd
-from .graph_ops.ops import advance_frontier, edge_relax, intersect_count
+from .graph_ops.ops import advance_frontier, edge_relax, edge_relax_lanes, intersect_count
 from .spmm_bsr.spmm_bsr import spmm_bsr
 
 KERNELS = {"edge_relax": edge_relax, "advance": advance_frontier,
-           "intersect": intersect_count, "flash_attention": flash_attention_bhsd,
-           "spmm_bsr": spmm_bsr, "embedding_bag": embedding_bag}
+           "intersect": intersect_count, "edge_relax_lanes": edge_relax_lanes,
+           "flash_attention": flash_attention_bhsd, "spmm_bsr": spmm_bsr,
+           "embedding_bag": embedding_bag}
 
 
 def reset_launches() -> None:

@@ -4,6 +4,7 @@ torch versions (``ref``).  ``repro_torch.core.operators`` routes here."""
 from .ops import (  # noqa: F401
     advance_frontier,
     edge_relax,
+    edge_relax_lanes,
     intersect_count,
     launch_counts,
     reset_launches,
@@ -11,6 +12,9 @@ from .ops import (  # noqa: F401
 from .ref import (  # noqa: F401
     KINDS,
     advance_ref,
+    batched_push_ref,
+    batched_relax_ref,
+    batched_scatter_reduce,
     det_push_ref,
     det_relax_ref,
     det_scatter_add,

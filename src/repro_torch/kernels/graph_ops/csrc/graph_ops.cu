@@ -86,6 +86,46 @@
 //   reversed push, relax_batch, relax_edges); relax_seed<dtype, kind>.
 //
 // ---------------------------------------------------------------------------
+// edge_relax_lanes — replaces _edge_relax_kernel under jax.vmap over B lanes
+//   (src/repro/kernels/graph_ops/graph_ops.py, vmapped by the multi-source
+//   operators at src/repro/core/operators.py:349-358 and :383-392).
+//
+//   The multi-source relax: B label lanes share one edge list.  src_val,
+//   out_init and the frontier are (B, n_pad) row-major; for each edge slot e
+//   and lane b, the message of src_val[b, src[e]] (edge_relax's) is sent
+//   into out[b, dst[e]] when active[b, src[e]] (and, for a batch, valid[e]),
+//   else the reduction's neutral, as ref.batched_push_ref /
+//   batched_relax_ref compute it.  Per lane this is edge_relax's function,
+//   with the same reductions (ordered-int f32 min/max, native int32, f32
+//   atomicAdd, the byte CAS for 'or'), so min/max/int/or rows are bitwise
+//   the plain version's and f32 add allclose.
+//
+//   Bound: device-memory bytes.  A slot reads src (4 B) and its lane word
+//   (a vertex array); dst and w only when some lane sends; each sending
+//   lane gathers src_val[b, s] and reads and updates out[b, d].  The
+//   vmapped TPU kernel read every slot B times; the point of the lanes is
+//   one read of each slot for all B (the MS-BFS amortisation).
+//
+//   Design, simple first: a launch takes up to 32 lanes (the wrapper splits
+//   B > 32 into groups of 32, one launch each).
+//     * lanes_seed copies out_init into out, packs the frontier into one
+//       32-bit lane word per vertex (bit b: active[b, v]; the MS-BFS bit
+//       field) and, for f32 min/max, sets bit b of the beyond word when a
+//       seed of lane b lies beyond the neutral (relax_seed's flag, per lane).
+//     * edge_relax_lanes: one slot a thread, grid-stride over a resident
+//       wave.  word = lanes[src[e]] (0 for an invalid batch slot, whose src
+//       is then not read); a slot with no lane to send reads no dst and no
+//       w.  Otherwise it reads them once and loops over the set bits of
+//       word | beyond: a set lane gathers src_val[b * n_pad + s] (lane-major:
+//       one random read per active lane) and sends its message, a clamped
+//       lane sends the neutral — the plain version's masked slots clamp a
+//       seed beyond the neutral (+inf under f32 min) at every dst they
+//       name, in every lane.  A read of out first skips what cannot change
+//       it (min/max/or), as in edge_relax.
+//   No warp-level combining, no staging of the lane rows: later work
+//   (PERF.md, ROADMAP queue 2).
+//
+// ---------------------------------------------------------------------------
 // advance — replaces _advance_kernel / advance_pallas
 //   (src/repro/kernels/graph_ops/graph_ops.py).
 //
@@ -885,6 +925,140 @@ cudaError_t launch_relax_w(bool use_w, int relax_case, const int* src, const int
                                         n_pad, flag, st);
 }
 
+// ---- edge_relax_lanes -----------------------------------------------------------
+
+constexpr int kLanes = 32;  // lanes a launch takes: the bits of a lane word
+
+// out = out_init for `lanes` rows; words[v] = the lanes active at v; bit b of
+// *beyond set when a seed of lane b lies beyond the reduction's neutral.
+template <typename T, typename K>
+__global__ void __launch_bounds__(kRelaxThreads)
+    lanes_seed(const uint8_t* __restrict__ active, const T* __restrict__ in, T* __restrict__ out,
+               unsigned int* __restrict__ words, long long n, int lanes,
+               unsigned int* __restrict__ beyond) {
+  using R = Reducer<T, K>;
+  unsigned int far = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; v < n;
+       v += stride) {
+    unsigned int word = 0;
+    for (int b = 0; b < lanes; ++b) {
+      const long long i = b * n + v;
+      const T x = in[i];
+      out[i] = x;
+      if (active[i]) word |= 1u << b;
+      if (R::kClamp && R::beyond(x)) far |= 1u << b;
+    }
+    words[v] = word;
+  }
+  if constexpr (R::kClamp) {
+    far = __reduce_or_sync(kFull, far);
+    if (far != 0 && (threadIdx.x & 31) == 0) atomicOr(beyond, far);
+  }
+}
+
+// One slot a thread: the slot's lane word, then one message per set lane
+// (and the neutral for each clamped lane).
+template <bool SLOT, typename T, typename K, bool USE_W>
+__global__ void __launch_bounds__(kRelaxThreads)
+    edge_relax_lanes(const int* __restrict__ src, const int* __restrict__ dst,
+                     const float* __restrict__ w, const uint8_t* __restrict__ valid,
+                     const unsigned int* __restrict__ words, const T* __restrict__ src_val, T* out,
+                     long long m, long long n, const unsigned int* __restrict__ beyond) {
+  using R = Reducer<T, K>;
+  unsigned int clamp = 0;
+  if constexpr (R::kClamp) clamp = *beyond;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < m;
+       e += stride) {
+    int s = 0;
+    unsigned int word = 0;
+    if constexpr (SLOT) {
+      const bool ok = __ldcs(valid + e) != 0;
+      if (!ok && clamp == 0) continue;
+      if (ok) {
+        s = __ldcs(src + e);
+        word = __ldg(words + s);
+      }
+    } else {
+      s = __ldcs(src + e);
+      word = __ldg(words + s);
+    }
+    const unsigned int send = word | clamp;
+    if (send == 0) continue;
+    const int d = __ldcs(dst + e);
+    const float wt = USE_W && word != 0 ? __ldcs(w + e) : 0.0f;
+    for (unsigned int left = send; left != 0; left &= left - 1) {
+      const int b = __ffs(left) - 1;
+      const long long row = b * n;
+      const T msg = (word >> b) & 1u ? edge_message<T, K, USE_W>(__ldg(src_val + row + s), wt)
+                                     : R::neutral();
+      T* p = out + row + d;
+      if (!R::kReadFirst || R::changes(msg, read_out(p))) R::atomic(p, msg);
+    }
+  }
+}
+
+template <bool SLOT, typename T, typename K, bool USE_W>
+cudaError_t launch_lanes(const int* src, const int* dst, const float* w, const uint8_t* valid,
+                         const uint8_t* active, const void* src_val, const void* out_init,
+                         void* out, long long m, long long n, int lanes, unsigned int* words,
+                         unsigned int* beyond, cudaStream_t st) {
+  using R = Reducer<T, K>;
+  if (lanes < 1 || lanes > kLanes || n <= 0) return cudaErrorInvalidValue;
+  T* o = static_cast<T*>(out);
+  cudaError_t err;
+  if constexpr (R::kClamp) {
+    err = cudaMemsetAsync(beyond, 0, sizeof(unsigned int), st);
+    if (err != cudaSuccess) return err;
+  }
+  const long long want = (n + kRelaxThreads - 1) / kRelaxThreads;
+  const int seed_blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
+  lanes_seed<T, K><<<seed_blocks, kRelaxThreads, 0, st>>>(
+      active, static_cast<const T*>(out_init), o, words, n, lanes, beyond);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || m <= 0) return err;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_relax_lanes<SLOT, T, K, USE_W>,
+                                                  kRelaxThreads, 0);
+    if (per_sm <= 0) per_sm = 1;
+  }
+  const long long slots = (m + kRelaxThreads - 1) / kRelaxThreads;
+  const long long most = static_cast<long long>(per_sm) * sm_count();
+  const int blocks = static_cast<int>(slots < most ? slots : most);
+  edge_relax_lanes<SLOT, T, K, USE_W><<<blocks, kRelaxThreads, 0, st>>>(
+      src, dst, w, valid, words, static_cast<const T*>(src_val), o, m, n, beyond);
+  return cudaGetLastError();
+}
+
+template <typename T, typename K, bool USE_W>
+cudaError_t launch_lanes_case(const int* src, const int* dst, const float* w,
+                              const uint8_t* valid, const uint8_t* active, const void* src_val,
+                              const void* out_init, void* out, long long m, long long n,
+                              int lanes, unsigned int* words, unsigned int* beyond,
+                              cudaStream_t st) {
+  if (valid != nullptr) {
+    return launch_lanes<true, T, K, USE_W>(src, dst, w, valid, active, src_val, out_init, out, m,
+                                           n, lanes, words, beyond, st);
+  }
+  return launch_lanes<false, T, K, USE_W>(src, dst, w, valid, active, src_val, out_init, out, m,
+                                          n, lanes, words, beyond, st);
+}
+
+template <typename T, typename K>
+cudaError_t launch_lanes_w(bool use_w, const int* src, const int* dst, const float* w,
+                           const uint8_t* valid, const uint8_t* active, const void* src_val,
+                           const void* out_init, void* out, long long m, long long n, int lanes,
+                           unsigned int* words, unsigned int* beyond, cudaStream_t st) {
+  if (use_w) {
+    return launch_lanes_case<T, K, true>(src, dst, w, valid, active, src_val, out_init, out, m,
+                                         n, lanes, words, beyond, st);
+  }
+  return launch_lanes_case<T, K, false>(src, dst, w, valid, active, src_val, out_init, out, m, n,
+                                        lanes, words, beyond, st);
+}
+
 // ---- advance ------------------------------------------------------------------
 
 constexpr int kScanThreads = 256;
@@ -1505,6 +1679,38 @@ int graph_ops_edge_relax(const void* src, const void* dst, const void* w, const 
     if (kind == KIND_ADD) return launch_relax_case<int, Add, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
   } else if (dtype == DT_U8 && !uw && kind == KIND_OR) {
     return launch_relax_case<uint8_t, Or, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The multi-source relax of `lanes` (<= 32) rows: src_val, out_init and out
+// are (lanes, n_pad) row-major, active the (lanes, n_pad) bool frontier,
+// valid the (m,) bool slot mask of a batch or null for a push.  words:
+// (n_pad,) int32 scratch; flag: (1,) int32 scratch.
+int graph_ops_edge_relax_lanes(const void* src, const void* dst, const void* w,
+                               const void* valid, const void* active, const void* src_val,
+                               const void* out_init, void* out, long long m, long long n_pad,
+                               int lanes, int dtype, int kind, int use_weight, void* words,
+                               void* flag, void* stream) {
+  const int* s = static_cast<const int*>(src);
+  const int* d = static_cast<const int*>(dst);
+  const float* ww = static_cast<const float*>(w);
+  const uint8_t* va = static_cast<const uint8_t*>(valid);
+  const uint8_t* ac = static_cast<const uint8_t*>(active);
+  unsigned int* wd = static_cast<unsigned int*>(words);
+  unsigned int* f = static_cast<unsigned int*>(flag);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool uw = use_weight != 0;
+  if (dtype == DT_F32) {
+    if (kind == KIND_MIN) return launch_lanes_w<float, Min>(uw, s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+    if (kind == KIND_MAX) return launch_lanes_w<float, Max>(uw, s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+    if (kind == KIND_ADD) return launch_lanes_w<float, Add>(uw, s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+  } else if (dtype == DT_I32 && !uw) {
+    if (kind == KIND_MIN) return launch_lanes_case<int, Min, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+    if (kind == KIND_MAX) return launch_lanes_case<int, Max, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+    if (kind == KIND_ADD) return launch_lanes_case<int, Add, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+  } else if (dtype == DT_U8 && !uw && kind == KIND_OR) {
+    return launch_lanes_case<uint8_t, Or, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -112,6 +112,77 @@ def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
 edge_relax.launches = 0
 
 
+# lanes one edge_relax_lanes launch takes: the bits of its lane word
+LANES = 32
+
+
+def edge_relax_lanes(src, dst, w, active, src_val, out_init, *, valid=None,
+                     kind: str = "min", use_weight: bool = True):
+    """The multi-source relax: B label lanes over one shared edge list, each
+    slot read once for all of them.
+
+    ``src_val``, ``out_init`` and ``active`` (the bool frontier) are
+    (B, n_pad) lane matrices; ``valid`` is None for a push over an edge
+    list (a slot fires in lane b when ``active[b, src]``) or the (m,) slot
+    mask of a batch (when also ``valid``).  Returns a new (B, n_pad)
+    accumulator seeded from ``out_init``: per row ``edge_relax``'s result.
+    One launch takes up to ``LANES`` lanes; B > 32 runs as groups of 32,
+    one launch (and one count) each."""
+    if src.device.type == "cpu":
+        if valid is None:
+            return ref.batched_push_ref(src, dst, w, src_val, active, out_init,
+                                        kind, use_weight)
+        return ref.batched_relax_ref(src, dst, w, valid, src_val, active,
+                                     out_init, kind, use_weight)
+    dev = src.device
+    if dev.type != "cuda":
+        raise ValueError(f"edge_relax_lanes runs on cuda or cpu tensors, not {dev}")
+    if out_init.dim() != 2:
+        raise ValueError(f"out_init must be (B, n_pad), not {tuple(out_init.shape)}")
+    m = src.shape[0]
+    lanes, n_pad = out_init.shape
+    widen = kind == "or" and out_init.dtype == torch.bool
+    if widen:
+        src_val = src_val.to(torch.uint8)
+        out_init = out_init.to(torch.uint8)
+    weighted = _RELAX_TYPES.get((out_init.dtype, kind))
+    if weighted is None or (use_weight and not weighted):
+        raise TypeError(f"edge_relax_lanes kernel does not take kind={kind!r} over "
+                        f"{out_init.dtype} with use_weight={use_weight}")
+    _expect(src, "src", torch.int32, (m,), dev)
+    _expect(dst, "dst", torch.int32, (m,), dev)
+    _expect(w, "w", torch.float32, (m,), dev)
+    if valid is not None:
+        _expect(valid, "valid", torch.bool, (m,), dev)
+    _expect(active, "active", torch.bool, (lanes, n_pad), dev)
+    _expect(src_val, "src_val", out_init.dtype, (lanes, n_pad), dev)
+    _expect(out_init, "out_init", out_init.dtype, (lanes, n_pad), dev)
+    out = torch.empty_like(out_init)   # each launch seeds its rows from out_init
+    if kind == "or" and (n_pad % 4 or out.data_ptr() % 4):
+        raise ValueError("the 'or' kernel updates aligned 32-bit words: "
+                         "n_pad must be a multiple of 4")
+    i32 = dict(dtype=torch.int32, device=dev)
+    words = torch.empty((n_pad,), **i32)   # scratch, reused by each group in stream order
+    flag = torch.empty((1,), **i32)
+    lib = build.load("graph_ops")
+    row = n_pad * out.element_size()
+    for lo in range(0, lanes, LANES):
+        k = min(LANES, lanes - lo)
+        rc = lib.graph_ops_edge_relax_lanes(
+            src.data_ptr(), dst.data_ptr(), w.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            active.data_ptr() + lo * n_pad, src_val.data_ptr() + lo * row,
+            out_init.data_ptr() + lo * row, out.data_ptr() + lo * row, m, n_pad, k,
+            _DTYPE[out.dtype], _KIND[kind], int(use_weight), words.data_ptr(),
+            flag.data_ptr(), _stream())
+        build.check(lib, rc, "edge_relax_lanes")
+        edge_relax_lanes.launches += 1
+    return out.to(torch.bool) if widen else out
+
+
+edge_relax_lanes.launches = 0
+
+
 def advance_frontier(f_idx, f_count, out_deg, row_ptr, col_idx, edge_w, *,
                      budget: int, sentinel: int, m_pad: int):
     """Merge-path frontier expansion into ``budget`` edge slots; returns
@@ -245,7 +316,7 @@ def intersect_count(adj, src, dst, *, sentinel: int, chunk=None):
 intersect_count.launches = 0
 
 _KERNELS = {"edge_relax": edge_relax, "advance": advance_frontier,
-            "intersect": intersect_count}
+            "intersect": intersect_count, "edge_relax_lanes": edge_relax_lanes}
 
 
 def reset_launches() -> None:

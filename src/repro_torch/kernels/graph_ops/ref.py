@@ -219,3 +219,58 @@ def relax_ref(src, dst, w, valid, src_val, out_init, kind: str = "min",
     msg = edge_message(src_val[src], w, kind, use_weight)
     msg = _masked(msg, valid, kind, out_init.dtype)
     return scatter_reduce(dst, msg, out_init, kind)
+
+
+# ---------------------------------------------------------------------------
+# Multi-source (batched-lane) relaxations — core/multisource.py
+# ---------------------------------------------------------------------------
+# One shared edge list amortized over B label lanes: the per-lane values
+# arrive as a (B, n_pad) matrix and the scatter runs on axis 1 with a shared
+# destination vector.  Per lane these compute exactly what push_ref /
+# relax_ref compute (the same ordered keys for f32 min/max, the same uint8
+# max for a bool 'or'), so each row is bitwise the single-lane call's.
+
+
+def batched_scatter_reduce(dst, msg, out, kind: str):
+    """Reduce ``msg`` (B, e) into (a copy of) ``out`` (B, n) at axis-1
+    positions ``dst``."""
+    if kind == "add":
+        return out.index_add(1, dst, msg.to(out.dtype))
+    idx = dst.long().expand(msg.shape[0], -1)
+    if kind == "or":
+        if out.dtype == torch.bool:
+            red = out.to(torch.uint8).scatter_reduce(
+                1, idx, msg.to(torch.uint8), "amax")
+            return red.to(torch.bool)
+        return out.scatter_reduce(1, idx, msg.to(out.dtype), "amax")
+    if kind not in ("min", "max"):
+        raise ValueError(kind)
+    reduce = "amin" if kind == "min" else "amax"
+    if out.dtype == torch.float32:
+        key = _ordered_key(out).scatter_reduce(
+            1, idx, _ordered_key(msg.to(out.dtype)), reduce)
+        return _from_ordered_key(key)
+    return out.scatter_reduce(1, idx, msg.to(out.dtype), reduce)
+
+
+def batched_push_ref(src, dst, w, src_val, active, out_init,
+                     kind: str = "min", use_weight: bool = True):
+    """Masked push over an edge list for B lanes at once: ``src_val``,
+    ``active`` and ``out_init`` are (B, n_pad), the edge arrays shared.
+    Every slot sends in every lane (the neutral where the lane's source is
+    inactive), as the reference's does."""
+    msg = edge_message(src_val[:, src], w, kind, use_weight)
+    msg = _masked(msg, active[:, src], kind, out_init.dtype)
+    return batched_scatter_reduce(dst, msg, out_init, kind)
+
+
+def batched_relax_ref(src, dst, w, valid, src_val, active, out_init,
+                      kind: str = "min", use_weight: bool = True):
+    """Scatter-relax an expanded edge batch for B lanes: a slot fires in
+    lane b when it is valid AND its source is in lane b's frontier
+    (``active``), which restores lane b's message multiset from a batch
+    expanded over the lanes' union frontier."""
+    msg = edge_message(src_val[:, src], w, kind, use_weight)
+    msg = _masked(msg, valid & active[:, src], kind, out_init.dtype)
+    return batched_scatter_reduce(dst, msg, out_init, kind)
+

@@ -8,6 +8,7 @@ counter, and the same as each other.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -254,9 +255,20 @@ def test_substrate_selection_api():
     with tops.deterministic_add_scope(True):
         assert tops.get_deterministic_add()
     assert not tops.get_deterministic_add()
-    for name in ("batched_push_dense", "batched_relax_batch"):
-        with pytest.raises(NotImplementedError):
-            getattr(tops, name)()
+    # the batched operators run on a Graph (core/multisource.py); a
+    # container that is neither a Graph nor tiered (a sharded one) is
+    # refused, naming the multi-device slice
+    lanes = torch.zeros((2, 4))
+    frontier = torch.zeros((2, 4), dtype=torch.bool)
+    sharded = types.SimpleNamespace(is_tiered=False)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tops.batched_push_dense(sharded, lanes, frontier, lanes)
+    for sub in tops.SUBSTRATES:
+        one = torch.zeros(1, dtype=torch.int32)
+        batch = tops.EdgeBatch(src=one, dst=one + 1, w=torch.ones(1),
+                               valid=torch.ones(1, dtype=torch.bool), total=one[0])
+        got = tops.batched_relax_batch(batch, lanes, ~frontier, lanes + 5, substrate=sub)
+        assert got[:, 1].tolist() == [1.0, 1.0] and got[:, 2].tolist() == [5.0, 5.0]
     adj = torch.tensor([[1, 3], [3, 3], [3, 3], [3, 3]], dtype=torch.int32)
     pair = torch.tensor([0, 3], dtype=torch.int32)
     for sub in tops.SUBSTRATES:

@@ -421,7 +421,13 @@ def test_cpu_wrappers_take_plain_version_and_launch_nothing():
                        jtc.oriented_adjacency(sym_graph("hub_leaves")))
     assert torch.equal(tgk.intersect_count(adj, osrc, odst, sentinel=tg.sentinel),
                        tgk.intersect_ref(adj, osrc, odst, tg.sentinel))
-    assert tgk.launch_counts() == {"edge_relax": 0, "advance": 0, "intersect": 0}
+    lanes = torch.stack([active, ~active])
+    vals, inits = torch.stack([sv, -sv]), torch.stack([init, init])
+    assert torch.equal(
+        tgk.edge_relax_lanes(tg.src_idx, tg.col_idx, tg.edge_w, lanes, vals, inits),
+        tgk.batched_push_ref(tg.src_idx, tg.col_idx, tg.edge_w, vals, lanes, inits))
+    assert tgk.launch_counts() == {"edge_relax": 0, "advance": 0, "intersect": 0,
+                                   "edge_relax_lanes": 0}
 
 
 def test_wrappers_refuse_other_devices():

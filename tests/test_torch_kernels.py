@@ -363,7 +363,8 @@ def test_kernel_wrappers_launch_nothing_on_the_cpu():
     t_eb(T(np.zeros((1, 1), np.int32)), T(np.ones((1, 1), np.float32)),
          T(np.ones((2, 2), np.float32)))
     assert set(tk.launch_counts()) == {"edge_relax", "advance", "intersect",
-                                       "flash_attention", "spmm_bsr", "embedding_bag"}
+                                       "edge_relax_lanes", "flash_attention",
+                                       "spmm_bsr", "embedding_bag"}
     assert all(n == 0 for n in tk.launch_counts().values())
 
 
