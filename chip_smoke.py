@@ -137,8 +137,11 @@ non-zero exit before its last line:
    against its plain version (``batched_push_ref`` / ``batched_relax_ref``)
    at B = 8 on the web graph — push (a dense round) and batch (a union
    advance) for f32 min weighted, f32 add unweighted and int32 min, the
-   batch case at B = 40 (two launches), and +inf seeds in two lanes —
-   bitwise but f32 add, each with its ms, bound, plain ms, one
+   batch case at B = 40 (two launches), and +inf seeds in two lanes; and
+   the in-place route as the two-buffer rounds call it
+   (a batch reseeded at its union, B = 8 and 40, a push reseeded in
+   full), each changed mask bitwise to ``batched_updated_mask`` — bitwise
+   but f32 add, each with its ms, bound, plain ms, one
    ``scatter_reduce_`` over the flattened (B·n_pad) index (library_ms) and
    B launches of ``edge_relax`` on the same rows; then, counts set to 0
    just before and read just after, the serving suite on the web graph
@@ -151,7 +154,8 @@ non-zero exit before its last line:
    (bitwise to per-source runs); the three web runs again under "torch",
    labels and RunStats equal (ppr: allclose, rounds within one); and
    ``ms_ppr`` at 4 lanes under det add on phase 5's quickstart graph,
-   bitwise to ``ppr_push``;
+   bitwise to ``ppr_push``; the ``profile serving`` lines (device time
+   by kernel of the three batched web runs, the seed passes summed);
 10. the other kernels at full width, each against its plain version on the
    card: bf16 flash attention against ``flash_attention_plain`` and
    ``attention_ref`` within rtol 8e-3 (one bf16 ulp) + 1e-3 x rms(want),
@@ -218,8 +222,10 @@ the inputs need: edge_relax reads src for each slot (each active one
 under a slot mask), dst for each slot that sends and w for each active
 one (``bound_all_slots_ms`` counts every slot's, the formula of earlier
 runs); edge_relax_lanes the same per slot (w for each slot some lane
-sends from), the frontier and its three (B, n_pad) lane arrays once, and
-counts one operation per message; advance reads the live entries' f_idx,
+sends from), the frontier and its three (B, n_pad) lane arrays once (in
+place: out only at the (lane, dst) pairs a message reaches and the
+reseeded columns, and one byte per changed entry), and counts one
+operation per message; advance reads the live entries' f_idx,
 degree and row_ptr.  A bf16 flash row also prints
 ``tflops`` (those 4 d operations per unmasked pair over the kernel's
 time), ``tc_flops`` (the 6 d per pair the kernel runs: p @ v twice, for
@@ -609,7 +615,8 @@ def run_advance_case(torch, gk, fr, g, name, mask, cap, budget):
 
 # the profile's families: a fragment of a kernel's name -> its family
 PROFILE_FAMILIES = (("edge_relax_lanes", "edge_relax_lanes"),
-                    ("lanes_seed", "edge_relax_lanes"),
+                    ("lanes_prep", "edge_relax_lanes"),
+                    ("lanes_seed", "edge_relax_lanes"),    # a tree from before the prep pass
                     ("edge_relax", "edge_relax"), ("relax_seed", "edge_relax"),
                     ("advance_", "advance"), ("intersect_", "intersect"))
 
@@ -663,7 +670,8 @@ def event_profile(torch, gk, runs):
     """The runs with a CUDA event pair around each call of a graph_ops
     wrapper (the operator seam looks them up on the package at each call);
     rows by case, dtype and kind."""
-    names = ("edge_relax", "edge_relax_lanes", "advance_frontier", "intersect_count")
+    names = ("edge_relax", "edge_relax_lanes", "edge_relax_lanes_", "advance_frontier",
+             "intersect_count")
     saved = {n: getattr(gk, n) for n in names}
     marks = []
 
@@ -721,6 +729,7 @@ def print_profile(torch, gk, label, runs, wall_ms):
     print(f"profile {label}: route={route} device_ms={device} wall_ms={wall_ms} "
           f"device_busy_share={device / wall_ms} (profiled wall {profiled_wall} ms) "
           f"families={json.dumps(fams)}", flush=True)
+    return rows
 
 
 # ---- phases 5 and 6: small check and the main path --------------------------
@@ -1920,8 +1929,13 @@ def lanes_cases(torch, g, fr, gk, gen):
     output of a sparse union (a quarter percent a lane, the budget the
     ladder picks for its mass); f32 min weighted (bfs, sssp), f32 add
     unweighted (ppr), int32 min; B = 8, the batch case once at MS_WIDE
-    lanes (two launches), and +inf seeds in two lanes (the clamp).  The
-    first case is the kernel's table case."""
+    lanes (two launches), and +inf seeds in two lanes (the clamp).  Then
+    the in-place route as the two-buffer rounds call it (``in_place``: ``out``
+    starts as a spare buffer equal to src_val but at the frontier and the
+    sentinel column, reseeded at the union's columns for a batch, in full
+    for a push; ``changed``: the changed lanes held to
+    ``batched_updated_mask``).  The first case is the kernel's table
+    case."""
     dev = g.device
     n_pad, m_pad = g.n_pad, g.m_pad
 
@@ -1951,16 +1965,24 @@ def lanes_cases(torch, g, fr, gk, gen):
         src, dst, w, valid, _ = gk.advance_frontier(
             f.idx, f.count, g.out_deg, g.row_ptr, g.col_idx, g.edge_w, budget=budget,
             sentinel=g.sentinel, m_pad=m_pad)
-        return dict(src=src, dst=dst, w=w, valid=valid), budget
+        return dict(src=src, dst=dst, w=w, valid=valid), budget, f.idx
+
+    def spare(sv, active):
+        """Last round's buffer: src_val but where the frontier is (the labels
+        that round lowered) and in the sentinel column, where it is higher
+        (+0.0 where src_val holds -0.0)."""
+        stale = torch.where(active, sv.abs() + 1.0, sv)
+        stale[:, -1] = sv[:, -1] + 1.0
+        return stale
 
     csr = dict(src=g.src_idx, dst=g.col_idx, w=g.edge_w, valid=None)
     dense8 = frontier(8, 0.1)
     sparse8 = frontier(8, 0.0025)
-    batch8, budget8 = advanced(sparse8)
+    batch8, budget8, union8 = advanced(sparse8)
     wide = frontier(MS_WIDE, 0.0025)
-    batch_wide, budget_wide = advanced(wide)
+    batch_wide, budget_wide, union_wide = advanced(wide)
     i32 = torch.randint(0, 2**20, (8, n_pad), generator=gen, device=dev, dtype=torch.int32)
-    return [
+    cases = [
         ("push f32 min weighted, B=8 (dense round)", dict(
             **csr, active=dense8, src_val=signed(8), out_init=signed(8), kind="min",
             use_weight=True)),
@@ -1989,32 +2011,89 @@ def lanes_cases(torch, g, fr, gk, gen):
             **batch8, active=sparse8, src_val=signed(8), out_init=signed(8, (1, 5)),
             kind="min", use_weight=True)),
     ]
+    sv_sparse, sv_dense, sv_wide = signed(8), signed(8), signed(MS_WIDE)
+    return cases + [
+        (f"in place: batch f32 min weighted, B=8, reseeded at the union, changed lanes "
+         f"(a sparse round, budget {budget8})", dict(
+             **batch8, active=sparse8, src_val=sv_sparse, out_init=spare(sv_sparse, sparse8),
+             kind="min", use_weight=True, in_place=dict(at=union8), changed=True)),
+        ("in place: push f32 min weighted, B=8, reseeded in full, changed lanes (a dense "
+         "round)", dict(
+             **csr, active=dense8, src_val=sv_dense, out_init=spare(sv_dense, dense8),
+             kind="min", use_weight=True, in_place=dict(at=None), changed=True)),
+        (f"in place: batch f32 min weighted, B={MS_WIDE}, reseeded at the union, changed "
+         f"lanes (two launches, budget {budget_wide})", dict(
+             **batch_wide, active=wide, src_val=sv_wide, out_init=spare(sv_wide, wide),
+             kind="min", use_weight=True, in_place=dict(at=union_wide), changed=True)),
+    ]
 
 
-def run_lanes_case(torch, gk, name, kw):
-    """``edge_relax_lanes`` against ``batched_push_ref`` / ``batched_relax_ref``
-    on the card: bitwise, f32 add within ADD_RTOL_OF_ABS_SUM of each
-    output's terms; its ms, the plain version's, one ``scatter_reduce_``
-    over the flattened (B·n_pad) index of the ready messages (library_ms),
-    B launches of ``edge_relax`` on the same rows (per_lane_edge_relax_ms),
-    and the bound of the bytes this input needs."""
+def cuda_ms_each(torch, fn, reset, reps=5):
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up, each
+    after ``reset()`` and timed alone by a CUDA event pair (an in-place call
+    gets its inputs back between calls, outside the timing).  A spin of
+    about a millisecond on the card before each start event keeps the
+    host's launch of ``fn`` out of the timing."""
+    reset()
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def run_lanes_case(torch, gk, ops, name, kw):
+    """``edge_relax_lanes`` (or, for an ``in_place`` case, ``edge_relax_lanes_``)
+    against its plain version on the card: bitwise, f32 add within
+    ADD_RTOL_OF_ABS_SUM of each output's terms, and a requested changed
+    mask bitwise to ``batched_updated_mask``; its ms, the plain version's,
+    one ``scatter_reduce_`` over the flattened (B·n_pad) index of the ready
+    messages (library_ms), B launches of ``edge_relax`` on the same rows
+    (per_lane_edge_relax_ms; not for an in-place case) and the bound of the
+    bytes this input needs."""
     kind, use_w, valid = kw["kind"], kw["use_weight"], kw["valid"]
     src, dst, w, active, sv, init = (kw[k] for k in ("src", "dst", "w", "active",
                                                      "src_val", "out_init"))
+    in_place = kw.get("in_place")
     b, n_pad = init.shape
     m = src.shape[0]
+    changed = torch.zeros((b, n_pad), dtype=torch.bool, device=src.device) \
+        if kw.get("changed") else None
+    # an in-place call's buffer: the spare ``init``, reseeded by the call
+    out = init.clone() if in_place is not None else None
+    at = in_place["at"] if in_place is not None else None
+
+    def reset():
+        if out is not None:
+            out.copy_(init)
+        if changed is not None:
+            changed.zero_()
 
     def kernel():
-        return gk.edge_relax_lanes(src, dst, w, active, sv, init, valid=valid, kind=kind,
-                                   use_weight=use_w)
+        if in_place is None:
+            return gk.edge_relax_lanes(src, dst, w, active, sv, init, valid=valid, kind=kind,
+                                       use_weight=use_w)
+        return gk.edge_relax_lanes_(src, dst, w, active, sv, out, valid=valid, kind=kind,
+                                    use_weight=use_w, at=at, reseed=True, changed=changed)
+
+    seeds = init if in_place is None else sv    # what the relax reduces into
 
     def plain():
         if valid is None:
-            return gk.batched_push_ref(src, dst, w, sv, active, init, kind, use_w)
-        return gk.batched_relax_ref(src, dst, w, valid, sv, active, init, kind, use_w)
+            return gk.batched_push_ref(src, dst, w, sv, active, seeds, kind, use_w)
+        return gk.batched_relax_ref(src, dst, w, valid, sv, active, seeds, kind, use_w)
 
     before = gk.edge_relax_lanes.launches
-    got, want = kernel(), plain()
+    reset()
+    got, want = kernel().clone(), plain()
     torch.cuda.synchronize()
     launches = gk.edge_relax_lanes.launches - before
     check(launches == -(-b // 32), f"lanes {name}: {launches} launches counted")
@@ -2023,7 +2102,7 @@ def run_lanes_case(torch, gk, name, kw):
     float_add = kind == "add" and init.dtype == torch.float32
     if float_add:
         terms = torch.where(keep, msg, 0.0).abs()
-        scale = torch.zeros_like(want).index_add_(1, dst, terms) + init.abs()
+        scale = torch.zeros_like(want).index_add_(1, dst, terms) + seeds.abs()
         err = (got - want).abs()
         check(bool((err <= ADD_RTOL_OF_ABS_SUM * scale + 1e-30).all()),
               f"lanes {name}: add outside tolerance (max err {float(err.max())})")
@@ -2033,6 +2112,10 @@ def run_lanes_case(torch, gk, name, kw):
         check(torch.equal(bits(torch, got), bits(torch, want)),
               f"lanes {name}: kernel and plain version differ bitwise")
         max_err = 0.0
+    if changed is not None:
+        check(torch.equal(changed, ops.batched_updated_mask(seeds, want)),
+              f"lanes {name}: changed lanes differ from batched_updated_mask")
+        n_changed = int(changed.sum())
     del got, want
     # library yardstick: one scatter_reduce_ over the flattened lane index
     reduce = {"min": "amin", "max": "amax", "add": "sum"}[kind]
@@ -2040,7 +2123,7 @@ def run_lanes_case(torch, gk, name, kw):
     flat_msg = flat_msg.reshape(-1)
     flat_idx = (torch.arange(b, device=src.device)[:, None] * n_pad
                 + dst.long()[None, :]).reshape(-1)
-    buf = init.clone().reshape(-1)
+    buf = seeds.clone().reshape(-1)
     del msg
     # the per-lane route: B launches of edge_relax on the same rows
     masks = keep if valid is not None else None
@@ -2049,26 +2132,34 @@ def run_lanes_case(torch, gk, name, kw):
         for i in range(b):
             if masks is None:
                 gk.edge_relax(src, dst, w, active[i], sv[i], init[i], kind=kind,
-                              use_weight=use_w, vertex_mask=True)
+                              use_weight=use_w, vertex_mask=True, case="push")
             else:
                 gk.edge_relax(src, dst, w, masks[i], sv[i], init[i], kind=kind,
                               use_weight=use_w, vertex_mask=False, case="batch")
 
-    t_k = cuda_ms(torch, kernel)
+    # out of place the calls repeat the same work back to back; in place
+    # each gets its spare buffer back first
+    t_k = cuda_ms(torch, kernel) if in_place is None else cuda_ms_each(torch, kernel, reset)
     t_p = cuda_ms(torch, plain)
     t_l = cuda_ms(torch, lambda: buf.scatter_reduce_(0, flat_idx, flat_msg, reduce))
-    t_r = cuda_ms(torch, per_lane)
+    t_r = cuda_ms(torch, per_lane) if in_place is None else None
     del flat_msg, flat_idx, buf, masks
-    work = lanes_work(torch, src, valid, keep, init, kind, use_w)
+    work = lanes_work(torch, src, valid, keep, init, kind, use_w,
+                      dst=dst if in_place is not None else None, at=at, changed=changed,
+                      reseed=in_place is not None)
     b_ms, b_by = bound_ms(work["bytes"], work["messages"])
-    return dict(case=name, lanes=b, launches=launches, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                per_lane_edge_relax_ms=t_r, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max_err, compare="allclose" if float_add else "bitwise",
+    return dict(case=name, lanes=b, in_place=in_place is not None, launches=launches,
+                ms=t_k, plain_ms=t_p, library_ms=t_l, per_lane_edge_relax_ms=t_r,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err,
+                compare="allclose" if float_add else "bitwise",
+                changed_mask=None if changed is None else "bitwise",
+                changed=None if changed is None else n_changed,
                 slots=m, slots_sending=work["slots_sending"], messages=work["messages"],
                 gathered=work["gathered"], clamped_lanes=work["clamped_lanes"])
 
 
-def lanes_work(torch, src, valid, keep, init, kind, use_w):
+def lanes_work(torch, src, valid, keep, init, kind, use_w, dst=None, at=None, changed=None,
+               reseed=False):
     """What a lane relax over these inputs must move, each input once:
     src for each slot (each valid one under a slot mask, whose 1-B mask is
     read for every slot); the frontier at the distinct sources of those
@@ -2076,7 +2167,16 @@ def lanes_work(torch, src, valid, keep, init, kind, use_w):
     clamped lane); w for each slot some lane sends from; src_val at the
     distinct (lane, source) pairs that send; out_init read and out written
     once.  ``keep`` is the (B, m) send mask.  Messages: one per sending
-    pair of (lane, slot), and every slot of a clamped lane."""
+    pair of (lane, slot), and every slot of a clamped lane.
+
+    In place (``dst``, the list's dst, given): no copy — ``out`` read and
+    written only at the distinct (lane, dst) pairs a message reaches; with
+    ``at`` (a reseed at those columns and the sentinel column) src_val is
+    read and out written at every lane of those columns as well (src_val's
+    gathers lie among them), out read at the other pairs; ``reseed``
+    without ``at`` (a reseed in full) src_val read and out written once
+    in full, as the copy out of place.  ``changed``: the mask the call
+    set, one byte written per set entry."""
     b, n_pad = init.shape
     m = src.shape[0]
     s = init.element_size()
@@ -2086,9 +2186,29 @@ def lanes_work(torch, src, valid, keep, init, kind, use_w):
     n_send = m if bool(clamp.any()) else n_any
     gathered = sum(distinct_sources(torch, src[keep[i]], n_pad) for i in range(b))
     n_msgs = int(keep.sum()) + int(clamp.sum()) * m
+    src_val_bytes = s * gathered
+    if dst is None:
+        out_bytes = 2 * b * n_pad * s
+    else:
+        lane = torch.arange(b, device=src.device)[:, None] * n_pad
+        pairs = torch.zeros(b * n_pad, dtype=torch.bool, device=src.device)
+        pairs[(lane + dst.long()[None, :])[keep]] = True
+        if at is None and reseed:
+            src_val_bytes = s * b * n_pad
+            out_bytes = s * b * n_pad
+        elif at is None:
+            out_bytes = 2 * s * int(pairs.sum())
+        else:
+            cols = torch.zeros(n_pad, dtype=torch.bool, device=src.device)
+            cols[at.long()] = True
+            cols[-1] = True
+            reseeded = cols.expand(b, n_pad).reshape(-1)
+            src_val_bytes = s * b * int(cols.sum())
+            out_bytes = s * int((pairs | reseeded).sum()) + s * int((pairs & ~reseeded).sum())
     nbytes = (4 * read.shape[0] + (0 if valid is None else m)
               + b * distinct_sources(torch, read, n_pad) + 4 * n_send
-              + (4 * n_any if use_w else 0) + s * gathered + 2 * b * n_pad * s)
+              + (4 * n_any if use_w else 0) + src_val_bytes + out_bytes
+              + (0 if changed is None else int(changed.sum())))
     return dict(bytes=nbytes, messages=n_msgs, slots_sending=n_send, gathered=gathered,
                 clamped_lanes=int(clamp.sum()))
 
@@ -2141,7 +2261,7 @@ def serving_phase(torch, np, tc, gk, ops, fr, ms, serving, bfs, pagerank, gen_mo
     rng = torch.Generator(device="cuda").manual_seed(MS_SEED)
     rows = []
     for name, kw in lanes_cases(torch, g, fr, gk, rng):
-        row = run_lanes_case(torch, gk, name, kw)
+        row = run_lanes_case(torch, gk, ops, name, kw)
         rows.append(row)
         print("  edge_relax_lanes " + json.dumps(row), flush=True)
         del kw
@@ -2229,9 +2349,14 @@ def serving_phase(torch, np, tc, gk, ops, fr, ms, serving, bfs, pagerank, gen_mo
             "ms_sssp": Run(lambda: ms.ms_sssp(g, sources)),
             "ms_ppr": Run(lambda: ms.ms_ppr(g, sources))}
     with ops.substrate_scope("cuda"):
-        print_profile(torch, gk, "serving", runs,
-                      (by["serving/batched_bfs_b8"][1] + by["serving/batched_sssp_b8"][1])
-                      / 1e3 + t_ppr * 1e3)
+        prof = print_profile(torch, gk, "serving", runs,
+                             (by["serving/batched_bfs_b8"][1]
+                              + by["serving/batched_sssp_b8"][1]) / 1e3 + t_ppr * 1e3)
+    # the lanes' seed and reseed passes (lanes_prep: <..., at, seed>)
+    seed = [r for r in prof if r["kernel"].startswith("lanes_prep")]
+    print(f"profile serving seed: {sum(r['total_ms'] for r in seed)} ms in "
+          f"{sum(r['calls'] for r in seed)} calls "
+          + json.dumps({r["kernel"]: [r["calls"], r["total_ms"]] for r in seed}), flush=True)
 
     t0 = time.perf_counter()
     src, dst, n = gen_mod.web_crawl_like(16, 5, 8, 2, seed=0)

@@ -33,9 +33,9 @@ stream the shards the mask needs through the device buffer pool, and
 ``sparse_round`` lowers to that masked push: the schedule already is the
 frontier's shard set.  The sharded branches belong to a later slice of
 the port (ROADMAP queue 1, item 11); they raise ``NotImplementedError``.
-The batched operators (``batched_push_dense``, ``batched_relax_batch``:
-core/multisource.py) relax B lanes of (B, n_pad) labels over one read of
-the edge list.
+The batched operators (``batched_push_dense``, ``batched_relax_batch``,
+and their in-place forms ending in ``_``: core/multisource.py) relax B
+lanes of (B, n_pad) labels over one read of the edge list.
 """
 
 from __future__ import annotations
@@ -268,6 +268,16 @@ def relax_edges(
                         out_init, kind, use_weight)
 
 
+def _det_lanes_(relax, src_val, masks, out, reseed, changed):
+    """Deterministic add, lane by lane, into ``out``: ``relax(mask, src_val,
+    seed)`` for each lane's row (with ``reseed``, ``src_val`` is the seed)."""
+    if changed is not None:
+        raise ValueError("a sum has no changed lanes: changed is for min, max and or")
+    if reseed:
+        out.copy_(src_val)
+    return out.copy_(torch.stack([relax(k, v, o) for k, v, o in zip(masks, src_val, out)]))
+
+
 def batched_push_dense(
     g: Graph,
     src_val: torch.Tensor,
@@ -285,12 +295,37 @@ def batched_push_dense(
     core/multisource.py).  Per lane the result is bitwise ``push_dense``'s
     on that lane's row:
 
-    * cuda  — the ``edge_relax_lanes`` kernel;
+    * cuda  — the ``edge_relax_lanes`` kernel over the CSR;
     * torch — ``batched_push_ref`` (axis-1 scatter, shared dst vector);
     * det add — the fixed-order tree, lane by lane.
 
     Tiered (out-of-core) graphs are refused: serving batches run on
-    resident graphs."""
+    resident graphs.  Out of place: ``batched_push_dense_`` into a copy of
+    ``out_init``."""
+    return batched_push_dense_(g, src_val, active, out_init.clone(), kind, use_weight,
+                               substrate, beyond=gk.lanes_beyond(out_init, kind))
+
+
+def batched_push_dense_(
+    g: Graph,
+    src_val: torch.Tensor,
+    active: torch.Tensor,
+    out: torch.Tensor,
+    kind: str = "min",
+    use_weight: bool = True,
+    substrate: str | None = None,
+    *,
+    reseed: bool = False,
+    changed: torch.Tensor | None = None,
+    beyond: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``batched_push_dense`` in place: ``out`` holds the seeds (with
+    ``reseed``, ``src_val`` is copied into it first) and becomes the
+    result; ``changed`` (min, max, or), an all-False (B, n_pad) bool
+    matrix, receives where a label moved (``batched_updated_mask``);
+    ``beyond`` as ``edge_relax_lanes_``'s.  ``src_val`` must be another
+    buffer.  The plain version on the torch substrate, the kernel on the
+    cuda one."""
     sub = _resolve(substrate)
     if getattr(g, "is_tiered", False):
         raise NotImplementedError(
@@ -298,15 +333,16 @@ def batched_push_dense(
             "the tiered streaming path is per-query")
     _single_graph(g, "batched_push_dense")
     if kind == "add" and _deterministic_add:
-        return torch.stack([
-            gk.det_push_ref(g.src_idx, g.col_idx, g.edge_w, v, a, o, use_weight)
-            for v, a, o in zip(src_val, active, out_init)])
+        return _det_lanes_(lambda a, v, o: gk.det_push_ref(
+            g.src_idx, g.col_idx, g.edge_w, v, a, o, use_weight), src_val, active, out,
+            reseed, changed)
     if sub == "cuda":
-        return gk.edge_relax_lanes(g.src_idx, g.col_idx, g.edge_w, active,
-                                   src_val, out_init, kind=kind,
-                                   use_weight=use_weight)
-    return gk.batched_push_ref(g.src_idx, g.col_idx, g.edge_w, src_val,
-                               active, out_init, kind, use_weight)
+        return gk.edge_relax_lanes_(g.src_idx, g.col_idx, g.edge_w, active, src_val, out,
+                                    kind=kind, use_weight=use_weight, reseed=reseed,
+                                    changed=changed, beyond=beyond)
+    return gk.batched_relax_into_ref(g.src_idx, g.col_idx, g.edge_w, None, src_val,
+                                     active, out, kind, use_weight, reseed=reseed,
+                                     changed=changed)
 
 
 def batched_relax_batch(
@@ -322,19 +358,43 @@ def batched_relax_batch(
     *union* frontier) relaxed for B lanes at once.  A slot fires in lane b
     iff it is valid AND its source is active in lane b's row, which
     restores exactly lane b's message multiset, so each row is bitwise the
-    single-lane sparse round's."""
+    single-lane sparse round's.  Out of place: ``batched_relax_batch_``
+    into a copy of ``out_init``."""
+    return batched_relax_batch_(batch, src_val, active, out_init.clone(), kind, use_weight,
+                                substrate, beyond=gk.lanes_beyond(out_init, kind))
+
+
+def batched_relax_batch_(
+    batch: EdgeBatch,
+    src_val: torch.Tensor,
+    active: torch.Tensor,
+    out: torch.Tensor,
+    kind: str = "min",
+    use_weight: bool = True,
+    substrate: str | None = None,
+    *,
+    at: torch.Tensor | None = None,
+    reseed: bool = False,
+    changed: torch.Tensor | None = None,
+    beyond: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``batched_relax_batch`` in place, as ``batched_push_dense_``.
+    ``at``: the int32 union the batch was advanced from (a compacted
+    frontier's ``idx``): the kernel packs lane words there only and, with
+    ``reseed``, copies ``src_val`` into ``out`` at those columns and the
+    sentinel column only — O(|union| B), not O(B n_pad)."""
     sub = _resolve(substrate)
     if kind == "add" and _deterministic_add:
-        masks = batch.valid & active[:, batch.src]
-        return torch.stack([
-            gk.det_relax_ref(batch.src, batch.dst, batch.w, k, v, o, use_weight)
-            for k, v, o in zip(masks, src_val, out_init)])
+        return _det_lanes_(lambda k, v, o: gk.det_relax_ref(
+            batch.src, batch.dst, batch.w, k, v, o, use_weight), src_val,
+            batch.valid & active[:, batch.src], out, reseed, changed)
     if sub == "cuda":
-        return gk.edge_relax_lanes(batch.src, batch.dst, batch.w, active,
-                                   src_val, out_init, valid=batch.valid,
-                                   kind=kind, use_weight=use_weight)
-    return gk.batched_relax_ref(batch.src, batch.dst, batch.w, batch.valid,
-                                src_val, active, out_init, kind, use_weight)
+        return gk.edge_relax_lanes_(batch.src, batch.dst, batch.w, active, src_val, out,
+                                    valid=batch.valid, kind=kind, use_weight=use_weight,
+                                    at=at, reseed=reseed, changed=changed, beyond=beyond)
+    return gk.batched_relax_into_ref(batch.src, batch.dst, batch.w, batch.valid, src_val,
+                                     active, out, kind, use_weight, at=at, reseed=reseed,
+                                     changed=changed)
 
 
 def batched_updated_mask(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:

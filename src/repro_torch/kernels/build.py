@@ -50,10 +50,12 @@ SIGNATURES = {
         # use_weight, case, flag, stream
         "graph_ops_edge_relax": (
             [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),
-        # src, dst, w, valid (or null), active, src_val, out_init, out, m,
-        # n_pad, lanes, dtype, kind, use_weight, words, flag, stream
+        # src, dst, w, valid (or null), active, src_val, seed (or null), out,
+        # m, n_pad, lanes, dtype, kind, use_weight, at (or null), n_at,
+        # changed (or null), beyond (or null), words, flag, stream
         "graph_ops_edge_relax_lanes": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I,
+             _P, _LL, _P, _P, _P, _P, _P], _I),
         "graph_ops_advance": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _P, _P, _P, _P, _P, _P, _P, _P], _I),

@@ -5,6 +5,7 @@ from .ops import (  # noqa: F401
     advance_frontier,
     edge_relax,
     edge_relax_lanes,
+    edge_relax_lanes_,
     intersect_count,
     launch_counts,
     reset_launches,
@@ -13,6 +14,7 @@ from .ref import (  # noqa: F401
     KINDS,
     advance_ref,
     batched_push_ref,
+    batched_relax_into_ref,
     batched_relax_ref,
     batched_scatter_reduce,
     det_push_ref,
@@ -21,6 +23,7 @@ from .ref import (  # noqa: F401
     edge_message,
     intersect_chunks_ref,
     intersect_ref,
+    lanes_beyond,
     neutral_for,
     pull_ref,
     push_ref,

@@ -106,24 +106,55 @@
 //   vmapped TPU kernel read every slot B times; the point of the lanes is
 //   one read of each slot for all B (the MS-BFS amortisation).
 //
-//   Design, simple first: a launch takes up to 32 lanes (the wrapper splits
-//   B > 32 into groups of 32, one launch each).
-//     * lanes_seed copies out_init into out, packs the frontier into one
-//       32-bit lane word per vertex (bit b: active[b, v]; the MS-BFS bit
-//       field) and, for f32 min/max, sets bit b of the beyond word when a
-//       seed of lane b lies beyond the neutral (relax_seed's flag, per lane).
-//     * edge_relax_lanes: one slot a thread, grid-stride over a resident
-//       wave.  word = lanes[src[e]] (0 for an invalid batch slot, whose src
-//       is then not read); a slot with no lane to send reads no dst and no
-//       w.  Otherwise it reads them once and loops over the set bits of
-//       word | beyond: a set lane gathers src_val[b * n_pad + s] (lane-major:
-//       one random read per active lane) and sends its message, a clamped
-//       lane sends the neutral — the plain version's masked slots clamp a
-//       seed beyond the neutral (+inf under f32 min) at every dst they
-//       name, in every lane.  A read of out first skips what cannot change
-//       it (min/max/or), as in edge_relax.
-//   No warp-level combining, no staging of the lane rows: later work
-//   (PERF.md, ROADMAP queue 2).
+//   Design.  The first version was a seed pass that copied all of out_init
+//   into out, packed the words and found the clamped lanes, then one slot a
+//   thread over the list.  What held it (PERF.md): on the serving path the seed copy, an
+//   O(B n_pad) pass on every round however sparse, and the caller's compare
+//   of both matrices for the changed lanes; on a dense push, each message
+//   an atomic at a random out[b, d] of a matrix larger than L2.  Now one
+//   launch takes up to 32 lanes (the wrapper splits B > 32 into groups of
+//   32, one launch each) in two passes:
+//     * lanes_prep packs the lane word of each vertex (bit b: active[b, v];
+//       the MS-BFS bit field) and, given a seed, copies it into out there:
+//       at every vertex (the out-of-place route; a full seed also finds the
+//       lanes with a seed beyond the neutral, relax_seed's flag per lane),
+//       or only at the vertices the caller lists and the sentinel column (a
+//       sparse round's reseed: the round's two label buffers differ only
+//       where the last round changed a label, which is this round's
+//       frontier; a valid batch slot reads no other word).  In place and
+//       without a list it packs the words and copies nothing.
+//     * the relax (push over the CSR, or a batch over advance's output:
+//       dst random): one slot a thread, grid-stride; word = words[src] (an
+//       invalid batch slot reads neither), a slot with no lane to send
+//       reads no dst and no w, else it loops over the word's set bits, each
+//       gathering src_val[b * n_pad + s] (lane-major) and sending its
+//       message.  The clamp: the plain version's masked slots send the
+//       neutral, which clamps a seed beyond it (+inf under f32 min) at the
+//       dst they name; a lane whose seeds may lie beyond (a full seed found
+//       one, or the caller says so) joins every slot's lanes, sending the
+//       neutral where the slot is masked in it (an active slot sends its own
+//       message, which may itself be +inf).  A pass of its own before the
+//       relax, which let the relax visit only set lanes, was slower
+//       (PERF.md): it read src, the words and dst of every slot again and
+//       still read out once per masked slot, and a full seed, which cannot
+//       tell the host whether a lane clamps, always launched it.  A route
+//       over the CSC mirror (dst sorted: each lane's runs of equal dst
+//       combined in registers, out swept nearly in order) was slower too
+//       (PERF.md): the CSC order makes every lane word and src_val gather
+//       random, where the CSR's sorted src reads them in order and only out
+//       is random; so was an L2 persisting window on the lane words.  A read
+//       of out first skips what cannot change it (min/max/or), as in
+//       edge_relax.
+//     * changed lanes (min, max, or; optional): an atomic that moved out[b,
+//       d] returns the value before it, and the thread sets changed[b, d]
+//       when the two compare unequal as T.  The values out[b, d] takes form
+//       a chain of strictly lower (higher) keys; the float compare differs
+//       from the key order only between -0.0 and +0.0, which are adjacent
+//       keys, so some step of the chain compares unequal exactly when the
+//       last value compares unequal to the seed: the mask is the caller's
+//       `new != old` for every seed but NaN (which compares unequal to
+//       itself, moved or not).  The sentinel column is never set.  The mask
+//       must be all False before the call (only set bits are written).
 //
 // ---------------------------------------------------------------------------
 // advance — replaces _advance_kernel / advance_pallas
@@ -285,7 +316,10 @@ constexpr int kKeyNegFltMax = ordered_key_bits(int(0xff7fffffu));  // ordered_ke
 
 // Reducer<T, K>: neutral, register combine, "can this message change cur",
 // the atomic, and whether masked slots clamp a seed beyond the neutral
-// (kClamp) and whether a read of out[dst] comes before the atomic.
+// (kClamp) and whether a read of out[dst] comes before the atomic
+// (kReadFirst: the kinds that only move one way).  Those kinds also have
+// moved(): the atomic, returning whether it moved *p to a value that
+// compares unequal (as T) to the one before it.
 template <typename T, typename K>
 struct Reducer;
 
@@ -309,6 +343,14 @@ struct Reducer<float, Min> {
       atomicMax(reinterpret_cast<unsigned int*>(p), static_cast<unsigned int>(b));
     }
   }
+  static __device__ __forceinline__ bool moved(float* p, float msg) {
+    const int b = __float_as_int(msg);
+    const float prev =
+        b >= 0 ? __int_as_float(atomicMin(reinterpret_cast<int*>(p), b))
+               : __uint_as_float(atomicMax(reinterpret_cast<unsigned int*>(p),
+                                           static_cast<unsigned int>(b)));
+    return changes(msg, prev) && msg != prev;
+  }
 };
 
 template <>
@@ -330,6 +372,14 @@ struct Reducer<float, Max> {
     } else {
       atomicMin(reinterpret_cast<unsigned int*>(p), static_cast<unsigned int>(b));
     }
+  }
+  static __device__ __forceinline__ bool moved(float* p, float msg) {
+    const int b = __float_as_int(msg);
+    const float prev =
+        b >= 0 ? __int_as_float(atomicMax(reinterpret_cast<int*>(p), b))
+               : __uint_as_float(atomicMin(reinterpret_cast<unsigned int*>(p),
+                                           static_cast<unsigned int>(b)));
+    return changes(msg, prev) && msg != prev;
   }
 };
 
@@ -353,6 +403,7 @@ struct Reducer<int, Min> {
   static __device__ __forceinline__ int combine(int a, int b) { return min(a, b); }
   static __device__ __forceinline__ bool changes(int msg, int cur) { return msg < cur; }
   static __device__ __forceinline__ void atomic(int* p, int msg) { atomicMin(p, msg); }
+  static __device__ __forceinline__ bool moved(int* p, int msg) { return atomicMin(p, msg) > msg; }
 };
 
 template <>
@@ -364,6 +415,7 @@ struct Reducer<int, Max> {
   static __device__ __forceinline__ int combine(int a, int b) { return max(a, b); }
   static __device__ __forceinline__ bool changes(int msg, int cur) { return msg > cur; }
   static __device__ __forceinline__ void atomic(int* p, int msg) { atomicMax(p, msg); }
+  static __device__ __forceinline__ bool moved(int* p, int msg) { return atomicMax(p, msg) < msg; }
 };
 
 template <>
@@ -385,17 +437,18 @@ struct Reducer<uint8_t, Or> {
   static __device__ __forceinline__ bool beyond(uint8_t) { return false; }
   static __device__ __forceinline__ uint8_t combine(uint8_t a, uint8_t b) { return a > b ? a : b; }
   static __device__ __forceinline__ bool changes(uint8_t msg, uint8_t cur) { return msg > cur; }
-  static __device__ __forceinline__ void atomic(uint8_t* p, uint8_t msg) {
+  static __device__ __forceinline__ void atomic(uint8_t* p, uint8_t msg) { moved(p, msg); }
+  static __device__ __forceinline__ bool moved(uint8_t* p, uint8_t msg) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
     unsigned int* word = reinterpret_cast<unsigned int*>(addr & ~uintptr_t(3));
     const unsigned int shift = static_cast<unsigned int>(addr & 3) * 8u;
     unsigned int old = *reinterpret_cast<volatile unsigned int*>(word);
     while (true) {
       const unsigned int cur = (old >> shift) & 0xffu;
-      if (cur >= msg) return;
+      if (cur >= msg) return false;
       const unsigned int repl = (old & ~(0xffu << shift)) | (static_cast<unsigned int>(msg) << shift);
       const unsigned int seen = atomicCAS(word, old, repl);
-      if (seen == old) return;
+      if (seen == old) return true;
       old = seen;
     }
   }
@@ -929,51 +982,99 @@ cudaError_t launch_relax_w(bool use_w, int relax_case, const int* src, const int
 
 constexpr int kLanes = 32;  // lanes a launch takes: the bits of a lane word
 
-// out = out_init for `lanes` rows; words[v] = the lanes active at v; bit b of
-// *beyond set when a seed of lane b lies beyond the reduction's neutral.
-template <typename T, typename K>
+// The prep pass: words[v] = the lanes active at v (bit b: active[b, v]) and,
+// with a seed, out = seed at v in every lane.  AT: at the listed vertices
+// and the sentinel column (v = n - 1) only; else at every vertex, where a
+// seed also sets bit b of *far when a seed of lane b lies beyond the
+// reduction's neutral (relax_seed's flag, one bit a lane).
+template <typename T, typename K, bool AT, bool SEED>
 __global__ void __launch_bounds__(kRelaxThreads)
-    lanes_seed(const uint8_t* __restrict__ active, const T* __restrict__ in, T* __restrict__ out,
-               unsigned int* __restrict__ words, long long n, int lanes,
-               unsigned int* __restrict__ beyond) {
+    lanes_prep(const uint8_t* __restrict__ active, const int* __restrict__ at, long long n_at,
+               const T* __restrict__ seed, T* __restrict__ out, unsigned int* __restrict__ words,
+               long long n, int lanes, unsigned int* __restrict__ far) {
   using R = Reducer<T, K>;
-  unsigned int far = 0;
+  unsigned int beyond = 0;
+  const long long count = AT ? n_at + 1 : n;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; v < n;
-       v += stride) {
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < count;
+       t += stride) {
+    const long long v = AT ? (t < n_at ? static_cast<long long>(__ldg(at + t)) : n - 1) : t;
     unsigned int word = 0;
     for (int b = 0; b < lanes; ++b) {
       const long long i = b * n + v;
-      const T x = in[i];
-      out[i] = x;
+      if constexpr (SEED) {
+        const T x = seed[i];
+        out[i] = x;
+        if constexpr (!AT && R::kClamp) {
+          if (R::beyond(x)) beyond |= 1u << b;
+        }
+      }
       if (active[i]) word |= 1u << b;
-      if (R::kClamp && R::beyond(x)) far |= 1u << b;
     }
     words[v] = word;
   }
-  if constexpr (R::kClamp) {
-    far = __reduce_or_sync(kFull, far);
-    if (far != 0 && (threadIdx.x & 31) == 0) atomicOr(beyond, far);
+  if constexpr (!AT && SEED && R::kClamp) {
+    beyond = __reduce_or_sync(kFull, beyond);
+    if (beyond != 0 && (threadIdx.x & 31) == 0) atomicOr(far, beyond);
   }
 }
 
-// One slot a thread: the slot's lane word, then one message per set lane
-// (and the neutral for each clamped lane).
-template <bool SLOT, typename T, typename K, bool USE_W>
+// The lanes flagged in a (lanes,) byte mask, as a lane word.
+__device__ __forceinline__ unsigned int lane_word(const uint8_t* __restrict__ bytes, int lanes) {
+  unsigned int word = 0;
+  for (int b = 0; b < lanes; ++b) {
+    if (bytes[b] != 0) word |= 1u << b;
+  }
+  return word;
+}
+
+// Reduce msg into *p, a read first skipping what cannot change it
+// (min/max/or).  CH: set *flag (the changed byte, or null in the sentinel
+// column) when the atomic moved *p to a value unequal to the one before.
+template <typename R, bool CH, typename T>
+__device__ __forceinline__ void relax_one(T* p, T msg, uint8_t* flag) {
+  if (R::kReadFirst && !R::changes(msg, read_out(p))) return;
+  if constexpr (CH) {
+    if (R::moved(p, msg) && flag != nullptr) *flag = 1;
+  } else {
+    R::atomic(p, msg);
+  }
+}
+
+// The clamp word of a launch: *far (a full seed's), else the caller's
+// (lanes,) byte mask of lanes whose seeds may lie beyond the neutral, else 0.
+template <typename R>
+__device__ __forceinline__ unsigned int clamp_word(const unsigned int* __restrict__ far,
+                                                   const uint8_t* __restrict__ beyond,
+                                                   int lanes) {
+  if constexpr (!R::kClamp) return 0u;
+  if (far != nullptr) return *far;
+  return beyond != nullptr ? lane_word(beyond, lanes) : 0u;
+}
+
+// The relax (push over the CSR, or a batch over advance's output: dst
+// random): one slot a thread, grid-stride over a resident wave.  word =
+// words[src[e]] (an invalid batch slot reads neither src nor its word); a
+// slot with no lane to send reads no dst and no w, else it reads them once
+// and loops over the set bits of word | clamp: a set lane gathers
+// src_val[b * n + s] (lane-major) and sends its message, a clamped lane in
+// which the slot is masked sends the neutral.
+template <typename C, typename T, typename K, bool USE_W, bool CH>
 __global__ void __launch_bounds__(kRelaxThreads)
     edge_relax_lanes(const int* __restrict__ src, const int* __restrict__ dst,
                      const float* __restrict__ w, const uint8_t* __restrict__ valid,
                      const unsigned int* __restrict__ words, const T* __restrict__ src_val, T* out,
-                     long long m, long long n, const unsigned int* __restrict__ beyond) {
+                     uint8_t* changed, long long m, long long n,
+                     const unsigned int* __restrict__ far, const uint8_t* __restrict__ beyond,
+                     int lanes) {
   using R = Reducer<T, K>;
-  unsigned int clamp = 0;
-  if constexpr (R::kClamp) clamp = *beyond;
+  const unsigned int clamp = clamp_word<R>(far, beyond, lanes);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < m;
        e += stride) {
     int s = 0;
     unsigned int word = 0;
-    if constexpr (SLOT) {
+    if constexpr (!C::kVertexMask) {
       const bool ok = __ldcs(valid + e) != 0;
       if (!ok && clamp == 0) continue;
       if (ok) {
@@ -990,73 +1091,110 @@ __global__ void __launch_bounds__(kRelaxThreads)
     const float wt = USE_W && word != 0 ? __ldcs(w + e) : 0.0f;
     for (unsigned int left = send; left != 0; left &= left - 1) {
       const int b = __ffs(left) - 1;
-      const long long row = b * n;
+      const long long row = static_cast<long long>(b) * n;
       const T msg = (word >> b) & 1u ? edge_message<T, K, USE_W>(__ldg(src_val + row + s), wt)
                                      : R::neutral();
       T* p = out + row + d;
-      if (!R::kReadFirst || R::changes(msg, read_out(p))) R::atomic(p, msg);
+      relax_one<R, CH>(p, msg, CH && d != n - 1 ? changed + row + d : nullptr);
     }
   }
 }
 
-template <bool SLOT, typename T, typename K, bool USE_W>
-cudaError_t launch_lanes(const int* src, const int* dst, const float* w, const uint8_t* valid,
-                         const uint8_t* active, const void* src_val, const void* out_init,
-                         void* out, long long m, long long n, int lanes, unsigned int* words,
-                         unsigned int* beyond, cudaStream_t st) {
-  using R = Reducer<T, K>;
-  if (lanes < 1 || lanes > kLanes || n <= 0) return cudaErrorInvalidValue;
-  T* o = static_cast<T*>(out);
-  cudaError_t err;
-  if constexpr (R::kClamp) {
-    err = cudaMemsetAsync(beyond, 0, sizeof(unsigned int), st);
-    if (err != cudaSuccess) return err;
-  }
-  const long long want = (n + kRelaxThreads - 1) / kRelaxThreads;
-  const int seed_blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
-  lanes_seed<T, K><<<seed_blocks, kRelaxThreads, 0, st>>>(
-      active, static_cast<const T*>(out_init), o, words, n, lanes, beyond);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || m <= 0) return err;
+// One launch's arguments (one group of up to 32 lanes).
+struct Lanes {
+  const int* src;
+  const int* dst;
+  const float* w;
+  const uint8_t* valid;   // the batch's slot mask, or null: a push
+  const uint8_t* active;  // (lanes, n) frontier
+  const void* src_val;
+  const void* seed;       // copied into out first (at `at` only, with `at`), or null
+  void* out;
+  long long m;
+  long long n;
+  int lanes;
+  const int* at;          // the vertices whose words the slots read, or null: every vertex
+  long long n_at;
+  uint8_t* changed;       // (lanes, n) bytes, or null
+  const uint8_t* beyond;  // (lanes,) bytes: lanes whose seeds may lie beyond the neutral
+  unsigned int* words;    // (n,) scratch
+  unsigned int* far;      // (1,) scratch: the seed pass's beyond word
+  cudaStream_t st;
+  const unsigned int* clamp_far;  // far once a full seed has filled it, else null
+};
+
+template <typename C, typename T, typename K, bool USE_W, bool CH>
+cudaError_t launch_lanes_relax(const Lanes& a) {
   static int per_sm = 0;
   if (per_sm == 0) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_relax_lanes<SLOT, T, K, USE_W>,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_relax_lanes<C, T, K, USE_W, CH>,
                                                   kRelaxThreads, 0);
     if (per_sm <= 0) per_sm = 1;
   }
-  const long long slots = (m + kRelaxThreads - 1) / kRelaxThreads;
+  const long long want = (a.m + kRelaxThreads - 1) / kRelaxThreads;
   const long long most = static_cast<long long>(per_sm) * sm_count();
-  const int blocks = static_cast<int>(slots < most ? slots : most);
-  edge_relax_lanes<SLOT, T, K, USE_W><<<blocks, kRelaxThreads, 0, st>>>(
-      src, dst, w, valid, words, static_cast<const T*>(src_val), o, m, n, beyond);
+  const int blocks = static_cast<int>(want < most ? want : most);
+  edge_relax_lanes<C, T, K, USE_W, CH><<<blocks, kRelaxThreads, 0, a.st>>>(
+      a.src, a.dst, a.w, a.valid, a.words, static_cast<const T*>(a.src_val),
+      static_cast<T*>(a.out), a.changed, a.m, a.n, a.clamp_far, a.beyond, a.lanes);
   return cudaGetLastError();
 }
 
-template <typename T, typename K, bool USE_W>
-cudaError_t launch_lanes_case(const int* src, const int* dst, const float* w,
-                              const uint8_t* valid, const uint8_t* active, const void* src_val,
-                              const void* out_init, void* out, long long m, long long n,
-                              int lanes, unsigned int* words, unsigned int* beyond,
-                              cudaStream_t st) {
-  if (valid != nullptr) {
-    return launch_lanes<true, T, K, USE_W>(src, dst, w, valid, active, src_val, out_init, out, m,
-                                           n, lanes, words, beyond, st);
+template <typename C, typename T, typename K, bool USE_W>
+cudaError_t launch_lanes_changed(const Lanes& a) {
+  if (a.changed == nullptr) return launch_lanes_relax<C, T, K, USE_W, false>(a);
+  if constexpr (Reducer<T, K>::kReadFirst) {
+    return launch_lanes_relax<C, T, K, USE_W, true>(a);
+  } else {
+    return cudaErrorInvalidValue;  // add: a sum has no changed lanes to report
   }
-  return launch_lanes<false, T, K, USE_W>(src, dst, w, valid, active, src_val, out_init, out, m,
-                                          n, lanes, words, beyond, st);
+}
+
+// the prep pass, then the relax (a push without valid, else a batch)
+template <typename T, typename K, bool USE_W>
+cudaError_t launch_lanes(Lanes a) {
+  using R = Reducer<T, K>;
+  const bool batch = a.valid != nullptr;
+  if (a.lanes < 1 || a.lanes > kLanes || a.n <= 0 || (a.at != nullptr && !batch)) {
+    return cudaErrorInvalidValue;
+  }
+  const T* seed = static_cast<const T*>(a.seed);
+  T* o = static_cast<T*>(a.out);
+  cudaError_t err;
+  const long long count = a.at != nullptr ? a.n_at + 1 : a.n;
+  const long long want = (count + kRelaxThreads - 1) / kRelaxThreads;
+  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
+  a.clamp_far = nullptr;
+  if (a.at != nullptr) {
+    if (seed != nullptr) {
+      lanes_prep<T, K, true, true><<<blocks, kRelaxThreads, 0, a.st>>>(
+          a.active, a.at, a.n_at, seed, o, a.words, a.n, a.lanes, a.far);
+    } else {
+      lanes_prep<T, K, true, false><<<blocks, kRelaxThreads, 0, a.st>>>(
+          a.active, a.at, a.n_at, seed, o, a.words, a.n, a.lanes, a.far);
+    }
+  } else if (seed != nullptr) {
+    if constexpr (R::kClamp) {
+      err = cudaMemsetAsync(a.far, 0, sizeof(unsigned int), a.st);
+      if (err != cudaSuccess) return err;
+      a.clamp_far = a.far;
+    }
+    lanes_prep<T, K, false, true><<<blocks, kRelaxThreads, 0, a.st>>>(
+        a.active, a.at, a.n_at, seed, o, a.words, a.n, a.lanes, a.far);
+  } else {
+    lanes_prep<T, K, false, false><<<blocks, kRelaxThreads, 0, a.st>>>(
+        a.active, a.at, a.n_at, seed, o, a.words, a.n, a.lanes, a.far);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.m <= 0) return err;
+  if (batch) return launch_lanes_changed<Batch, T, K, USE_W>(a);
+  return launch_lanes_changed<Push, T, K, USE_W>(a);
 }
 
 template <typename T, typename K>
-cudaError_t launch_lanes_w(bool use_w, const int* src, const int* dst, const float* w,
-                           const uint8_t* valid, const uint8_t* active, const void* src_val,
-                           const void* out_init, void* out, long long m, long long n, int lanes,
-                           unsigned int* words, unsigned int* beyond, cudaStream_t st) {
-  if (use_w) {
-    return launch_lanes_case<T, K, true>(src, dst, w, valid, active, src_val, out_init, out, m,
-                                         n, lanes, words, beyond, st);
-  }
-  return launch_lanes_case<T, K, false>(src, dst, w, valid, active, src_val, out_init, out, m, n,
-                                        lanes, words, beyond, st);
+cudaError_t launch_lanes_w(bool use_w, const Lanes& a) {
+  if (use_w) return launch_lanes<T, K, true>(a);
+  return launch_lanes<T, K, false>(a);
 }
 
 // ---- advance ------------------------------------------------------------------
@@ -1683,34 +1821,41 @@ int graph_ops_edge_relax(const void* src, const void* dst, const void* w, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The multi-source relax of `lanes` (<= 32) rows: src_val, out_init and out
-// are (lanes, n_pad) row-major, active the (lanes, n_pad) bool frontier,
-// valid the (m,) bool slot mask of a batch or null for a push.  words:
-// (n_pad,) int32 scratch; flag: (1,) int32 scratch.
+// The multi-source relax of `lanes` (<= 32) rows into out, in place: src_val,
+// seed and out are (lanes, n_pad) row-major, active the (lanes, n_pad) bool
+// frontier, valid the (m,) bool slot mask of a batch or null for a push.
+// seed, or null: copied into out first, at every vertex (the out-of-place
+// route, or a full reseed) or, with at, at the n_at listed vertices and the
+// sentinel column; at: null, or the vertices every valid slot's src is
+// among (the lane words are packed there only).  changed, or null: (lanes,
+// n_pad) bytes, set where the relax moved out to a value unequal to its seed
+// (not in the sentinel column; min, max and or).  beyond, or null: (lanes,)
+// bytes, lanes whose seeds may lie beyond the neutral (f32 min/max; a full
+// seed finds its own).  words: (n_pad,) int32 scratch; flag: (1,) int32
+// scratch.
 int graph_ops_edge_relax_lanes(const void* src, const void* dst, const void* w,
                                const void* valid, const void* active, const void* src_val,
-                               const void* out_init, void* out, long long m, long long n_pad,
-                               int lanes, int dtype, int kind, int use_weight, void* words,
+                               const void* seed, void* out, long long m, long long n_pad,
+                               int lanes, int dtype, int kind, int use_weight, const void* at,
+                               long long n_at, void* changed, const void* beyond, void* words,
                                void* flag, void* stream) {
-  const int* s = static_cast<const int*>(src);
-  const int* d = static_cast<const int*>(dst);
-  const float* ww = static_cast<const float*>(w);
-  const uint8_t* va = static_cast<const uint8_t*>(valid);
-  const uint8_t* ac = static_cast<const uint8_t*>(active);
-  unsigned int* wd = static_cast<unsigned int*>(words);
-  unsigned int* f = static_cast<unsigned int*>(flag);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Lanes a{static_cast<const int*>(src), static_cast<const int*>(dst),
+                static_cast<const float*>(w), static_cast<const uint8_t*>(valid),
+                static_cast<const uint8_t*>(active), src_val, seed, out, m, n_pad, lanes,
+                static_cast<const int*>(at), n_at, static_cast<uint8_t*>(changed),
+                static_cast<const uint8_t*>(beyond), static_cast<unsigned int*>(words),
+                static_cast<unsigned int*>(flag), static_cast<cudaStream_t>(stream), nullptr};
   const bool uw = use_weight != 0;
   if (dtype == DT_F32) {
-    if (kind == KIND_MIN) return launch_lanes_w<float, Min>(uw, s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
-    if (kind == KIND_MAX) return launch_lanes_w<float, Max>(uw, s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
-    if (kind == KIND_ADD) return launch_lanes_w<float, Add>(uw, s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+    if (kind == KIND_MIN) return launch_lanes_w<float, Min>(uw, a);
+    if (kind == KIND_MAX) return launch_lanes_w<float, Max>(uw, a);
+    if (kind == KIND_ADD) return launch_lanes_w<float, Add>(uw, a);
   } else if (dtype == DT_I32 && !uw) {
-    if (kind == KIND_MIN) return launch_lanes_case<int, Min, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
-    if (kind == KIND_MAX) return launch_lanes_case<int, Max, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
-    if (kind == KIND_ADD) return launch_lanes_case<int, Add, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+    if (kind == KIND_MIN) return launch_lanes<int, Min, false>(a);
+    if (kind == KIND_MAX) return launch_lanes<int, Max, false>(a);
+    if (kind == KIND_ADD) return launch_lanes<int, Add, false>(a);
   } else if (dtype == DT_U8 && !uw && kind == KIND_OR) {
-    return launch_lanes_case<uint8_t, Or, false>(s, d, ww, va, ac, src_val, out_init, out, m, n_pad, lanes, wd, f, st);
+    return launch_lanes<uint8_t, Or, false>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

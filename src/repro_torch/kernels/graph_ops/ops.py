@@ -126,38 +126,88 @@ def edge_relax_lanes(src, dst, w, active, src_val, out_init, *, valid=None,
     list (a slot fires in lane b when ``active[b, src]``) or the (m,) slot
     mask of a batch (when also ``valid``).  Returns a new (B, n_pad)
     accumulator seeded from ``out_init``: per row ``edge_relax``'s result.
-    One launch takes up to ``LANES`` lanes; B > 32 runs as groups of 32,
-    one launch (and one count) each."""
+    Out of place: a copy of ``out_init`` (the kernel's seed pass), then
+    ``edge_relax_lanes_``'s relax into it."""
     if src.device.type == "cpu":
-        if valid is None:
-            return ref.batched_push_ref(src, dst, w, src_val, active, out_init,
-                                        kind, use_weight)
-        return ref.batched_relax_ref(src, dst, w, valid, src_val, active,
-                                     out_init, kind, use_weight)
+        return ref.batched_relax_into_ref(src, dst, w, valid, src_val, active,
+                                          out_init.clone(), kind, use_weight)
+    return _relax_lanes(src, dst, w, active, src_val, torch.empty_like(out_init),
+                        out_init, valid=valid, kind=kind, use_weight=use_weight,
+                        at=None, changed=None, beyond=None)
+
+
+def edge_relax_lanes_(src, dst, w, active, src_val, out, *, valid=None,
+                      kind: str = "min", use_weight: bool = True, at=None,
+                      reseed: bool = False, changed=None, beyond=None):
+    """``edge_relax_lanes`` in place: relax into ``out``, which holds the
+    seeds; ``src_val`` must be another buffer (an in-place chaotic relax
+    would read this round's labels).  Returns ``out``.
+
+    ``at``: for a batch, the int32 vertices every valid slot's src is among
+    (the union the batch was advanced from): the lane words are packed
+    there only.  ``reseed``: ``out`` equals ``src_val`` except, with
+    ``at``, at those columns and the sentinel column (without, anywhere):
+    copy ``src_val`` there first.  ``changed`` (min, max, or): an
+    all-False (B, n_pad) bool matrix, set where the relax moved ``out`` to
+    a value unequal to its seed (the caller's ``new != old``; never the
+    sentinel column; a NaN seed, unequal to itself, is set only where
+    moved).  ``beyond``: None when no seed lies beyond the neutral (f32
+    min/max: above FLT_MAX, below -FLT_MAX), else a (B,) bool mask of the
+    lanes whose seeds may (``ref.lanes_beyond``); a reseed without ``at``
+    finds them itself.  One launch takes up to ``LANES`` lanes; B > 32
+    runs as groups of 32, one launch (and one count) each."""
+    if at is not None and valid is None:
+        raise ValueError("at lists the sources of a batch's valid slots: a push reads "
+                         "every vertex's lane word")
+    if changed is not None and kind == "add":
+        raise ValueError("a sum has no changed lanes: changed is for min, max and or")
+    if ref._overlap(src_val, out):
+        raise ValueError("src_val must not alias out: an in-place relax reads "
+                         "last round's labels")
+    if src.device.type == "cpu":
+        return ref.batched_relax_into_ref(src, dst, w, valid, src_val, active, out,
+                                          kind, use_weight, at=at, reseed=reseed,
+                                          changed=changed)
+    return _relax_lanes(src, dst, w, active, src_val, out, src_val if reseed else None,
+                        valid=valid, kind=kind, use_weight=use_weight, at=at,
+                        changed=changed, beyond=beyond)
+
+
+def _relax_lanes(src, dst, w, active, src_val, out, seed, *, valid, kind, use_weight,
+                 at, changed, beyond):
+    """The launches of both lanes wrappers, one per group of 32 lanes."""
     dev = src.device
     if dev.type != "cuda":
         raise ValueError(f"edge_relax_lanes runs on cuda or cpu tensors, not {dev}")
-    if out_init.dim() != 2:
-        raise ValueError(f"out_init must be (B, n_pad), not {tuple(out_init.shape)}")
+    if out.dim() != 2:
+        raise ValueError(f"out must be (B, n_pad), not {tuple(out.shape)}")
     m = src.shape[0]
-    lanes, n_pad = out_init.shape
-    widen = kind == "or" and out_init.dtype == torch.bool
-    if widen:
-        src_val = src_val.to(torch.uint8)
-        out_init = out_init.to(torch.uint8)
-    weighted = _RELAX_TYPES.get((out_init.dtype, kind))
+    lanes, n_pad = out.shape
+    dtype = out.dtype
+    if kind == "or" and dtype == torch.bool:
+        # bool has no atomics: reduce its bytes as uint8 max (ref's 'or')
+        src_val, out = src_val.view(torch.uint8), out.view(torch.uint8)
+        seed = None if seed is None else seed.view(torch.uint8)
+    weighted = _RELAX_TYPES.get((out.dtype, kind))
     if weighted is None or (use_weight and not weighted):
         raise TypeError(f"edge_relax_lanes kernel does not take kind={kind!r} over "
-                        f"{out_init.dtype} with use_weight={use_weight}")
+                        f"{dtype} with use_weight={use_weight}")
     _expect(src, "src", torch.int32, (m,), dev)
     _expect(dst, "dst", torch.int32, (m,), dev)
     _expect(w, "w", torch.float32, (m,), dev)
     if valid is not None:
         _expect(valid, "valid", torch.bool, (m,), dev)
     _expect(active, "active", torch.bool, (lanes, n_pad), dev)
-    _expect(src_val, "src_val", out_init.dtype, (lanes, n_pad), dev)
-    _expect(out_init, "out_init", out_init.dtype, (lanes, n_pad), dev)
-    out = torch.empty_like(out_init)   # each launch seeds its rows from out_init
+    _expect(src_val, "src_val", out.dtype, (lanes, n_pad), dev)
+    _expect(out, "out", out.dtype, (lanes, n_pad), dev)
+    if seed is not None:
+        _expect(seed, "seed", out.dtype, (lanes, n_pad), dev)
+    if at is not None:
+        _expect(at, "at", torch.int32, (at.shape[0],), dev)
+    if changed is not None:
+        _expect(changed, "changed", torch.bool, (lanes, n_pad), dev)
+    if beyond is not None:
+        _expect(beyond, "beyond", torch.bool, (lanes,), dev)
     if kind == "or" and (n_pad % 4 or out.data_ptr() % 4):
         raise ValueError("the 'or' kernel updates aligned 32-bit words: "
                          "n_pad must be a multiple of 4")
@@ -166,18 +216,23 @@ def edge_relax_lanes(src, dst, w, active, src_val, out_init, *, valid=None,
     flag = torch.empty((1,), **i32)
     lib = build.load("graph_ops")
     row = n_pad * out.element_size()
+
+    def at_row(t, lo, size):
+        return None if t is None else t.data_ptr() + lo * size
+
     for lo in range(0, lanes, LANES):
         k = min(LANES, lanes - lo)
         rc = lib.graph_ops_edge_relax_lanes(
-            src.data_ptr(), dst.data_ptr(), w.data_ptr(),
-            None if valid is None else valid.data_ptr(),
+            src.data_ptr(), dst.data_ptr(), w.data_ptr(), at_row(valid, 0, 0),
             active.data_ptr() + lo * n_pad, src_val.data_ptr() + lo * row,
-            out_init.data_ptr() + lo * row, out.data_ptr() + lo * row, m, n_pad, k,
-            _DTYPE[out.dtype], _KIND[kind], int(use_weight), words.data_ptr(),
+            at_row(seed, lo, row), out.data_ptr() + lo * row, m, n_pad, k,
+            _DTYPE[out.dtype], _KIND[kind], int(use_weight),
+            at_row(at, 0, 0), 0 if at is None else at.shape[0],
+            at_row(changed, lo, n_pad), at_row(beyond, lo, 1), words.data_ptr(),
             flag.data_ptr(), _stream())
         build.check(lib, rc, "edge_relax_lanes")
         edge_relax_lanes.launches += 1
-    return out.to(torch.bool) if widen else out
+    return out.view(dtype)
 
 
 edge_relax_lanes.launches = 0

@@ -274,3 +274,61 @@ def batched_relax_ref(src, dst, w, valid, src_val, active, out_init,
     msg = _masked(msg, valid & active[:, src], kind, out_init.dtype)
     return batched_scatter_reduce(dst, msg, out_init, kind)
 
+
+
+def lanes_beyond(x, kind: str):
+    """(B,) bool: the lanes of a (B, n_pad) label matrix holding a value
+    beyond the neutral of ``kind`` (f32 min: above FLT_MAX, max: below
+    -FLT_MAX, in the ordered-key order), whose seeds a masked slot clamps.
+    All False for other dtypes and kinds."""
+    if x.dtype != torch.float32 or kind not in ("min", "max"):
+        return torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    key = _ordered_key(x)
+    far = key > 0x7F7FFFFF if kind == "min" else key < -0x7F800000
+    return far.any(1)
+
+
+def _overlap(a, b) -> bool:
+    """Whether two tensors' bytes overlap."""
+    if a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr():
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def batched_relax_into_ref(src, dst, w, valid, src_val, active, out,
+                           kind: str = "min", use_weight: bool = True, *,
+                           at=None, reseed: bool = False, changed=None):
+    """The lanes relax in place: ``out`` (B, n_pad), which holds the seeds,
+    becomes ``batched_push_ref`` (``valid`` None) or ``batched_relax_ref``
+    of ``src_val`` seeded from it.  ``reseed``: ``out`` holds them only
+    where it equals ``src_val``, which is copied in first — everywhere, or
+    with ``at`` (the vertices every valid slot's src is among) at those
+    columns and the sentinel column (the two-buffer rounds of
+    core/multisource.py).  ``changed`` (min, max, or): a (B, n_pad) bool
+    matrix, set where the relax moved ``out`` to a value unequal to its
+    seed, never in the sentinel column.  ``src_val`` must not share bytes
+    with ``out``.  Returns ``out``."""
+    if _overlap(src_val, out):
+        raise ValueError("src_val must not alias out: an in-place relax "
+                         "reads last round's labels")
+    if changed is not None and kind == "add":
+        raise ValueError("a sum has no changed lanes: changed is for min, max and or")
+    if reseed:
+        if at is None:
+            out.copy_(src_val)
+        else:
+            sentinel = torch.full((1,), out.shape[1] - 1, dtype=torch.long,
+                                  device=out.device)
+            cols = torch.cat([at.long(), sentinel])
+            out.index_copy_(1, cols, src_val.index_select(1, cols))
+    if valid is None:
+        new = batched_push_ref(src, dst, w, src_val, active, out, kind, use_weight)
+    else:
+        new = batched_relax_ref(src, dst, w, valid, src_val, active, out, kind,
+                                use_weight)
+    if changed is not None:
+        moved = new != out
+        moved[:, -1] = False
+        changed |= moved
+    return out.copy_(new)

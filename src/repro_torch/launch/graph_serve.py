@@ -14,9 +14,10 @@ Tick structure (one ``engine.fetch`` per tick):
    cleared, slot freed so it backfills THIS tick), and a bounded ready
    queue (``max_ready``) sheds overload newest-first.  Shed requests come
    back ``done`` with ``reject_reason`` set.
-1. **admit** ready arrivals into free slots: the lane's initial labels and
-   one-hot frontier row are written in place on the device (fills of the
-   slot's row views; no host row is copied over).
+1. **admit** ready arrivals into free slots: the lane's initial labels (in
+   both of the dist steps' label buffers) and one-hot frontier row are
+   written in place on the device (``MultiSourceEngine.reset_lane``: fills
+   of the slot's row views; no host row is copied over).
 2. **fetch** the union ladder scalars + per-lane ``alive`` flags in one
    transfer (``MultiSourceEngine.fetch``), after admission, so the rung
    sees the just-admitted rows.
@@ -41,7 +42,6 @@ import numpy as np
 import torch
 
 from ..core import multisource as ms
-from ..core.graph import set_at
 from ..distributed.fault import StragglerMonitor
 
 ALGOS = ("bfs", "sssp", "ppr")
@@ -108,12 +108,13 @@ class GraphServer:
         self.overload_sheds = 0
         self.remesh_signals = 0
         if algo == "ppr":
-            sparse, dense = ms.make_ppr_steps(damping, tol)
+            steps = ms.PprSteps(damping, tol)
             self.inf = None
         else:
-            sparse, dense = ms._dist_sparse_step, ms._dist_dense_step
             self.inf = ms.BFS_INF if algo == "bfs" else ms.SSSP_INF
-        self.eng = ms.MultiSourceEngine(g, sparse, dense)
+            steps = ms.DistSteps(self.inf)
+        self.steps = steps
+        self.eng = ms.MultiSourceEngine(g, steps.sparse, steps.dense, steps.reset)
         self.free_slots = list(range(max_batch))
         self.slots: List[Optional[QueryRequest]] = [None] * max_batch
         shape = (max_batch, g.n_pad)
@@ -140,14 +141,7 @@ class GraphServer:
         slot = self.free_slots.pop()
         req.slot = slot
         self.slots[slot] = req
-        src = int(req.source)
-        if self.algo == "ppr":
-            rank, resid = self.labels
-            rank[slot].fill_(0.0)
-            set_at(resid[slot].fill_(0.0), src, 1.0)
-        else:
-            set_at(self.labels[slot].fill_(self.inf), src, 0.0)
-        set_at(self.fmat[slot].fill_(False), src, True)
+        self.eng.reset_lane(self.labels, self.fmat, slot, int(req.source))
         return True
 
     # -- completion ----------------------------------------------------------
@@ -174,9 +168,10 @@ class GraphServer:
     def _expire(self, ready) -> None:
         """Deadline pass, run BEFORE admission so a freed slot backfills
         within the same tick: queued requests past budget are dropped, and
-        an expired lane is evicted — its frontier row (and, for ppr, its
-        rank and residual rows, whose residual would resurrect the frontier
-        next round) cleared, its slot freed."""
+        an expired lane is evicted — its rows cleared in every buffer the
+        steps keep (``eng.reset_lane``: the frontier row, the label rows,
+        for ppr the residual that would resurrect the frontier next round),
+        its slot freed."""
         for req in [r for r in ready if self._expired(r)]:
             ready.remove(req)
             self._shed(req, "deadline")
@@ -188,10 +183,7 @@ class GraphServer:
             self.deadline_evictions += 1
             self.slots[s] = None
             self.free_slots.append(s)
-            self.fmat[s].fill_(False)
-            if self.algo == "ppr":
-                for lane in self.labels:
-                    lane[s].fill_(0.0)
+            self.eng.reset_lane(self.labels, self.fmat, s)
 
     # -- one serving tick ----------------------------------------------------
     def tick(self, ready) -> bool:

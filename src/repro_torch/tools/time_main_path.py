@@ -1,7 +1,7 @@
 """Wall times of the quickstart main path on one CUDA card, repeated.
 
     python3 src/repro_torch/tools/time_main_path.py [--src DIR] [--repeat 8]
-        [--path-only]
+        [--path-only | --serving]
 
 Builds the graphs of ``chip_smoke.py``'s main path
 (``web_crawl_like(512, 13, 16, 3)`` with random weights as CSR+CSC, and
@@ -31,6 +31,14 @@ kernel's tiles (``chip_smoke.intersect_work``), profiles ``tc_count`` on both
 graphs, and times ``spmm_bsr`` on phase 10's block-sparse graph (F = 128;
 f32, bf16 and both mixed dtypes).  All of it takes ``chip_smoke.py`` from
 this checkout.
+
+``--serving`` times the batched serving runs instead: on the same web
+graph, from phase 3's source and 9h's seven seeded vertices
+(``chip_smoke.ms_sources``), ``ms_bfs``, ``ms_sssp`` and ``ms_ppr`` once to
+warm up and ``--repeat`` more times each (walls as above), the graph query
+server's 16 ragged requests on 8 slots ``--repeat`` times
+(``benchmarks/serving.py``'s server row after its warm pass: qps, p50,
+p99), then one more pass of the three under the profile.
 """
 
 from __future__ import annotations
@@ -53,6 +61,8 @@ def main() -> int:
     ap.add_argument("--communities", type=int, default=512)
     ap.add_argument("--path-only", action="store_true",
                     help="time the main path only")
+    ap.add_argument("--serving", action="store_true",
+                    help="time the batched serving runs instead of the main path")
     args = ap.parse_args()
 
     import torch
@@ -79,8 +89,10 @@ def main() -> int:
     src, dst, n = gen_mod.web_crawl_like(args.communities, 13, 16, 3, seed=0)
     w = gen_mod.random_weights(len(src), seed=1)
     g = tc.from_coo(src, dst, n, w, build_csc=True)
-    gsym = tc.from_coo(src, dst, n, symmetrize=True, build_csc=True)
     source = int(np.argmax(np.bincount(src, minlength=n)))
+    if args.serving:
+        return serving_walls(torch, np, cs, gk, ops, g, source, args, card)
+    gsym = tc.from_coo(src, dst, n, symmetrize=True, build_csc=True)
     del src, dst, w
     runs = {
         "bfs_dd_sparse": lambda: bfs.bfs_dd_sparse(g, source),
@@ -147,6 +159,46 @@ def main() -> int:
     kernel_cases(torch, cs, gk, fr, g, gsym)
     intersect_cases(torch, cs, gk, gen_mod, gsym)
     spmm_cases(torch, cs, gen_mod)
+    return 0
+
+
+def serving_walls(torch, np, cs, gk, ops, g, source, args, card) -> int:
+    """``--serving``: the batched runs' walls, the server's rows, the
+    profile."""
+    from repro_torch.benchmarks import serving
+    from repro_torch.core import multisource as ms
+    sources = cs.ms_sources(np, g, source, cs.MS_SEED)
+    runs = {"ms_bfs": lambda: ms.ms_bfs(g, sources),
+            "ms_sssp": lambda: ms.ms_sssp(g, sources),
+            "ms_ppr": lambda: ms.ms_ppr(g, sources)}
+    walls = {name: [] for name in runs}
+    first = {}
+    with ops.substrate_scope("cuda"):
+        for rep in range(args.repeat + 1):
+            for name, fn in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                if rep:
+                    walls[name].append(wall)
+                else:
+                    first[name] = wall
+        server = []
+        for _ in range(args.repeat):
+            rows = serving.run(graphs=(g, sources), warmup=0, iters=1)
+            stats = next(r[3] for r in rows if r[0] == "serving/server_bfs")
+            server.append({k: stats[k] for k in ("qps", "p50_us", "p99_us")})
+    summary = {name: dict(min=min(v), median=statistics.median(v), max=max(v))
+               for name, v in walls.items()}
+    print(json.dumps({"src": args.src, "card": card, "m": g.m, "sources": sources,
+                      "repeat": args.repeat, "first_ms": first, "wall_ms": walls,
+                      "summary": summary, "server": server}), flush=True)
+    with ops.substrate_scope("cuda"):
+        gk.reset_launches()
+        cs.print_profile(torch, gk, "serving", {k: cs.Run(v) for k, v in runs.items()},
+                         sum(summary[k]["median"] for k in runs))
     return 0
 
 

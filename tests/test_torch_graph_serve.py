@@ -169,6 +169,41 @@ def test_eviction_backfills_within_one_tick():
     assert float(srv.labels[0, 1]) == 0.0
 
 
+@pytest.mark.parametrize("substrate", ["torch", "cuda"])
+def test_slot_evicted_and_refilled_mid_run_serves_its_own_run(substrate):
+    """A sssp lane evicted by its deadline mid-run and its slot refilled
+    the same tick by a waiting request: the refill's labels bitwise its
+    per-source run (and the reference server's), though the slot's rows in
+    both of the steps' label buffers held the evicted run's labels; the
+    eviction resets both buffers' rows (``eng.reset_lane``)."""
+    from repro_torch.core import operators as tops
+    jg, tg, n = _rmat_graph(weighted=True)
+    rounds = {s: SEQ["sssp"](tg, s)[1].rounds for s in range(n)}
+    long_ = [s for s in range(n) if rounds[s] >= 6]
+    s0, s1, s2 = long_[0], long_[1], long_[2]
+    specs = [dict(rid=0, source=s0, deadline_ticks=3), dict(rid=1, source=s1),
+             dict(rid=2, source=s2, arrive_round=1)]
+    with tops.substrate_scope(substrate):
+        srv, out, _, _ = both(jg, tg, specs, dict(algo="sssp", max_batch=2))
+    evicted, survivor, refill = out
+    assert evicted.reject_reason == "deadline" and evicted.labels is None
+    assert refill.slot == evicted.slot and refill.rounds > 0
+    for r in (survivor, refill):
+        assert np.array_equal(r.labels, SEQ["sssp"](tg, r.source)[0].numpy()), r.rid
+    # an eviction resets the lane's rows in both label buffers
+    srv = tgs.GraphServer(tg, algo="sssp", max_batch=2)
+    srv.admit(tgs.QueryRequest(rid=0, source=s0))
+    srv.admit(tgs.QueryRequest(rid=1, source=s1))
+    for _ in range(3):
+        srv.tick([])
+    spare = srv.steps._spare[0]
+    assert bool((srv.labels[1] < srv.inf).any()) and bool((spare[1] < srv.inf).any())
+    srv.eng.reset_lane(srv.labels, srv.fmat, 1)
+    for buf in (srv.labels, spare):
+        assert bool((buf[1] == srv.inf).all())
+    assert not bool(srv.fmat[1].any())
+
+
 def test_ppr_eviction_does_not_resurrect_the_lane():
     jg, tg = _serve_graph()
     specs = [dict(rid=0, source=0, deadline_ticks=1), dict(rid=1, source=1)]

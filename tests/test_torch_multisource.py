@@ -6,8 +6,10 @@ and every lane's labels are bitwise equal to the per-source ``*_dd_sparse``
 run, on either substrate; ``RunStats`` counters equal the JAX engine's.
 On the CPU the ``"cuda"`` substrate's wrappers take the plain versions, so
 the kernel's own design is checked here by a model of it
-(``lanes_kernel_model``: the lane words, the set bits, the per-lane clamp)
-held to the plain version; on the card ``chip_smoke.py`` holds the kernel.
+(``lanes_kernel_model``: the lane words, the set bits, the per-lane clamp,
+the in-place reseed and the changed bits; the in-place cases are in
+``test_torch_lanes_design.py``) held to the plain version; on the card
+``chip_smoke.py`` holds the kernel.
 
 Tolerances: bitwise for min/max/or, int32 and deterministic add; plain
 float add allclose (rtol 1e-6 on the refs, the scatter-add order is the
@@ -165,40 +167,103 @@ def lane_words(active):
     return (active.to(torch.int32) * bit[:, None]).sum(0, dtype=torch.int32)
 
 
+def _key(x):
+    """The ordered key of an f32 (the kernel's atomics' order, -0.0 < +0.0)."""
+    b = int(np.float32(x).view(np.int32))
+    return b if b >= 0 else b ^ 0x7FFFFFFF
+
+
+def _atomics(vals, flat, msgs, kind, changed, n_pad, rng):
+    """The kernel's atomics on a flat numpy copy of out, one message at a
+    time in a shuffled order: a min/max/or message that moves its entry
+    sets the changed bit when the value before compares unequal to it (the
+    value the atomic returns), never in the sentinel column; add sums."""
+    if kind == "add":
+        np.add.at(vals, flat, msgs)
+        return
+    f32 = vals.dtype == np.float32
+    for k in rng.permutation(len(flat)):
+        i, msg = int(flat[k]), msgs[k]
+        cur = vals[i]
+        a, c = (_key(msg), _key(cur)) if f32 else (int(msg), int(cur))
+        if a < c if kind == "min" else a > c:
+            vals[i] = msg
+            if changed is not None and msg != cur and i % n_pad != n_pad - 1:
+                changed[i] = True
+
+
 def lanes_kernel_model(src, dst, w, active, src_val, out_init, valid=None,
-                       kind="min", use_weight=True):
-    """``edge_relax_lanes`` step for step in torch: groups of 32 lanes; per
-    group the seed copy, the lane words (``lane_words``) and the per-lane
-    beyond word; per slot word = words[src] (0 for an invalid slot), and
-    only the set bits of word | beyond send — a set lane its message, a
-    clamped lane the neutral.  Slots and lanes that send nothing are
-    skipped, which is what the kernel saves against the plain version."""
-    out = out_init.clone()
-    wide = kind == "or" and out.dtype == torch.bool
+                       kind="min", use_weight=True, *, out=None, at=None,
+                       changed=None, beyond=None, seed=0):
+    """``edge_relax_lanes`` step for step, per group of 32 lanes:
+
+    1. prep: out of place (``out`` None) a copy of ``out_init``; in place
+       ``out`` reseeded from ``src_val`` — at the ``at`` columns and the
+       sentinel column, or everywhere without ``at``.  The lane words
+       (``lane_words``) packed at ``at`` only, every other word all ones
+       (a slot that read one would send in every lane), or everywhere.
+       The clamp word: from a full seed, each lane with a seed beyond the
+       neutral; else the caller's ``beyond`` lanes.
+    2. the relax: word = words[src] (0 for an invalid slot); its set bits
+       send their messages, and each clamped lane in which the slot is
+       masked sends the neutral (the plain version's masked slots clamp a
+       seed beyond it; an active slot sends its own message, even +inf);
+    3. ``_atomics`` in a shuffled order (``seed``), the changed bits from
+       what each atomic returns.
+
+    Slots and lanes that send nothing are skipped, which is what the
+    kernel saves against the plain version.  Returns the new labels; the
+    changed bits go into ``changed`` (an all-False (B, n_pad) bool)."""
+    rng = np.random.default_rng(seed)
+    wide = kind == "or" and src_val.dtype == torch.bool
+    if out is None:
+        res = out_init.clone()
+        seed_full = True
+    else:
+        res = out.clone()
+        seed_full = at is None
+        cols = (torch.arange(res.shape[1]) if at is None
+                else torch.cat([at.long(), torch.tensor([res.shape[1] - 1])]))
+        res[:, cols] = src_val[:, cols]
     if wide:
-        out, src_val = out.to(torch.uint8), src_val.to(torch.uint8)
-    n_pad = out.shape[1]
-    neutral = tref.neutral_for(kind, out.dtype)
-    for lo in range(0, out.shape[0], 32):
-        hi = min(lo + 32, out.shape[0])
+        res, src_val = res.to(torch.uint8), src_val.to(torch.uint8)
+    b_all, n_pad = res.shape
+    f32_clamp = res.dtype == torch.float32 and kind in ("min", "max")
+    neutral = tref.neutral_for(kind, res.dtype)
+    flat_out = res.numpy().reshape(-1).copy()
+    flat_changed = None if changed is None else np.zeros(b_all * n_pad, bool)
+    for lo in range(0, b_all, 32):
+        hi = min(lo + 32, b_all)
         bits = torch.arange(hi - lo, dtype=torch.int64)[:, None]
         words = lane_words(active[lo:hi]).long() & 0xFFFFFFFF
-        beyond = 0     # bit b: a seed of lane b lies beyond the neutral
-        if out.dtype == torch.float32 and kind in ("min", "max"):
-            key = tref._ordered_key(out[lo:hi])
-            far = (key > 0x7F7FFFFF) if kind == "min" else (key < -0x7F800000)
-            beyond = int((far.any(1).long() << bits[:, 0]).sum())
+        if at is not None:
+            packed = torch.full_like(words, 0xFFFFFFFF)
+            packed[at.long()] = words[at.long()]
+            packed[-1] = words[-1]
+            words = packed
+        clamp = torch.zeros(hi - lo, dtype=torch.bool)
+        if f32_clamp:
+            if seed_full:
+                clamp = tref.lanes_beyond(torch.from_numpy(
+                    flat_out[lo * n_pad:hi * n_pad].reshape(hi - lo, n_pad)), kind)
+            elif beyond is not None:
+                clamp = beyond[lo:hi]
         word = words[src.long()]
         if valid is not None:
             word = torch.where(valid, word, 0)
-        sets = (word[None, :] >> bits) & 1 == 1              # (k, e)
-        sends = ((word | beyond)[None, :] >> bits) & 1 == 1
+        sets = (word[None, :] >> bits) & 1 == 1                  # (k, m)
+        # 2. the relax: the set lanes' messages, the clamped lanes' neutral
+        # from the slots masked in them
         msg = tref.edge_message(src_val[lo:hi][:, src.long()], w, kind, use_weight)
-        msg = torch.where(sets, msg.to(out.dtype), neutral)
-        flat = (torch.arange(lo, hi)[:, None] * n_pad + dst.long()[None, :])[sends]
-        out = tref.scatter_reduce(flat, msg[sends], out.reshape(-1),
-                                  kind).reshape(out.shape)
-    return out.to(torch.bool) if wide else out
+        msg = torch.where(sets, msg.to(res.dtype), neutral)
+        sets = sets | clamp[:, None]
+        d = dst.long()
+        flat = ((torch.arange(lo, hi)[:, None] * n_pad + d[None, :])[sets]).numpy()
+        _atomics(flat_out, flat, msg[sets].numpy(), kind, flat_changed, n_pad, rng)
+    res = torch.from_numpy(flat_out.reshape(b_all, n_pad))
+    if changed is not None:
+        changed |= torch.from_numpy(flat_changed.reshape(b_all, n_pad))
+    return res.to(torch.bool) if wide else res
 
 
 @pytest.mark.parametrize("case", ["push", "relax"])
@@ -365,6 +430,72 @@ if HAVE_HYP:
         _check_batched_equals_per_source(tg, n, src_seed, b, substrate)
 
 
+@pytest.mark.parametrize("substrate", ["torch", "cuda"])
+def test_two_buffer_rounds_reseed_only_the_union(substrate, monkeypatch):
+    """``ms_sssp``'s rounds through ``DistSteps``, one at a time: after each
+    round the spare label buffer equals the returned labels but exactly at
+    the returned frontier (the changed lanes) and the sentinel column, the
+    spare frontier is all False; every sparse round relaxes in place from
+    the other buffer (``src_val`` never ``out``) reseeded at its compacted
+    union, never in full.  Lanes and counters equal the reference's
+    ``ms_sssp`` and the per-source runs."""
+    jg, tg, n = _rmat_graph(scale=8, ef=6, seed=5, weighted=True)
+    sources = np.random.default_rng(2).integers(0, n, 6)
+    calls = []
+    real = tops.batched_relax_batch_
+
+    def spy(batch, src_val, active, out, *a, **k):
+        assert out is not src_val and k["reseed"] and k["at"] is not None
+        union = torch.nonzero(active.any(0)).flatten().to(torch.int32)
+        assert set(union.tolist()) <= set(k["at"].tolist())
+        calls.append(int(k["at"].shape[0]))
+        return real(batch, src_val, active, out, *a, **k)
+    monkeypatch.setattr(tops, "batched_relax_batch_", spy)
+    src = torch.as_tensor(sources)
+    dist = torch.full((len(sources), tg.n_pad), tms.SSSP_INF)
+    dist.scatter_(1, src.view(-1, 1), 0.0)
+    fmat = tfr.batched_from_sources(src, tg.n_pad)
+    steps = tms.DistSteps(tms.SSSP_INF)
+    eng = tms.MultiSourceEngine(tg, steps.sparse, steps.dense, steps.reset)
+    with tops.substrate_scope(substrate):
+        while True:
+            total, ucount, umass, _ = eng.fetch(fmat)
+            if total == 0:
+                break
+            dist, fmat = eng.round_once(dist, fmat, ucount, umass)
+            spare, spare_f = steps._spare
+            assert spare is not dist and not bool(spare_f.any())
+            differ = spare != dist
+            differ[:, -1] = False
+            assert torch.equal(differ, fmat)
+    assert eng.stats.sparse_rounds == len(calls) > 0 and eng.stats.dense_rounds > 0
+    jd, jst = jms.ms_sssp(jg, sources)
+    np.testing.assert_array_equal(dist.numpy(), np.asarray(jd))
+    eng.stats.sources = len(sources)
+    assert counters(eng.stats) == counters(jst)
+    for i, s in enumerate(sources):
+        assert torch.equal(dist[i], tsssp.sssp_dd_sparse(tg, int(s))[0])
+
+
+@pytest.mark.parametrize("substrate", ["torch", "cuda"])
+def test_unreached_past_flt_max_clamps_as_the_reference(substrate):
+    """``ms_distances`` from ``inf = +inf``, past FLT_MAX: the plain
+    version's masked slots clamp an unreached +inf to FLT_MAX at every dst
+    they name, and the two-buffer steps hand the kernel the lanes that may
+    hold such a seed (``beyond``): lanes bitwise and counters equal to the
+    reference's run from the same ``inf``."""
+    jg, tg, n = _rmat_graph(scale=7, ef=8, seed=3, weighted=True)
+    sources = [1, 17, 42]
+    with tops.substrate_scope(substrate):
+        dist, st = tms.ms_distances(tg, sources, float("inf"))
+    jd, jst = jms.ms_distances(jg, sources, jnp.float32(np.inf))
+    np.testing.assert_array_equal(dist.numpy().view(np.int32),
+                                  np.asarray(jd).view(np.int32))
+    assert counters(st) == counters(jst)
+    assert bool((dist == tms.FLT_MAX).any())    # the clamp happened
+    assert tms.DistSteps(float("inf")).clamp and not tms.DistSteps(tms.BFS_INF).clamp
+
+
 def test_batched_ppr_matches_per_source():
     """PPR lanes: bitwise to the port's ``ppr_push`` under deterministic add
     (counters equal to the reference's ``ms_ppr``, ranks within 1e-6 of
@@ -450,22 +581,44 @@ def _chip_smoke():
     # their 4 sources (8) + dst and w at 2 sending slots (8 + 8) + src_val
     # at 3 pairs (12) + 128; 3 messages
     ("batch", False, (186, 3, 2, 3)),
+    # in place, dst [1, 2, 2, 5, 6, 6]: no copy; out read and written at
+    # the 5 (lane, dst) pairs a message reaches (40) in place of the 128,
+    # and 3 changed bytes: 24 + 8 + 16 + 16 + 12 + 40 + 3
+    ("push in place", False, (119, 6, 4, 3)),
+    # in place, reseeded in full: src_val read (64) and out written (64)
+    # once in full, as the copy out of place, and the 3 changed bytes:
+    # 24 + 8 + 16 + 16 + 64 + 64 + 3
+    ("push in place, reseeded", False, (195, 6, 4, 3)),
+    # in place, reseeded at the union [0, 3] and the sentinel column 7:
+    # src_val at 2 lanes x 3 columns (24); out written there and at the 3
+    # message pairs, read at those 3 (36 + 12): 46 + 24 + 48
+    ("batch in place", False, (118, 3, 2, 3)),
 ])
 def test_chip_smoke_lane_bound_charges_only_what_is_read(case, clamp, want):
     """chip_smoke.py's bound for ``edge_relax_lanes`` charges src_val at
     the (lane, source) pairs that send and, under a slot mask, the
-    frontier only at the valid slots' sources: counted by hand."""
+    frontier only at the valid slots' sources; in place, out only where
+    messages and the reseed reach it (a reseed in full: src_val and out
+    once in full), and the changed bytes it sets: counted by hand."""
     smoke = _chip_smoke()
     src = T(np.array([0, 0, 1, 2, 3, 3], np.int32))
+    dst = T(np.array([1, 2, 2, 5, 6, 6], np.int32))
     active = np.zeros((2, 8), bool)
     active[0, 0] = active[1, [0, 3]] = True
     active = T(active)
     init = torch.zeros((2, 8))
     if clamp:
         init[1, 7] = float("inf")
-    valid = T(np.array([1, 0, 1, 1, 1, 0], bool)) if case == "batch" else None
+    valid = T(np.array([1, 0, 1, 1, 1, 0], bool)) if case.startswith("batch") else None
     keep = active[:, src.long()] if valid is None else valid & active[:, src.long()]
-    work = smoke.lanes_work(torch, src.long(), valid, keep, init, "min", True)
+    kw = {}
+    if case.startswith("push in place"):
+        changed = torch.zeros((2, 8), dtype=torch.bool)
+        changed[0, 1] = changed[1, [1, 6]] = True
+        kw = dict(dst=dst.long(), changed=changed, reseed=case.endswith("reseeded"))
+    elif case == "batch in place":
+        kw = dict(dst=dst.long(), at=T(np.array([0, 3], np.int32)))
+    work = smoke.lanes_work(torch, src.long(), valid, keep, init, "min", True, **kw)
     assert (work["bytes"], work["messages"], work["slots_sending"],
             work["gathered"]) == want
     assert work["clamped_lanes"] == int(clamp)
