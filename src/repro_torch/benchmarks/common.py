@@ -27,6 +27,12 @@ def timed(fn: Callable, warmup: int = 1, iters: int = 3):
     """``(first call's output, median wall µs of the timed calls)``: the
     row's results and counters come from the first call (the warm-up when
     there is one), so a row costs ``warmup + iters`` calls."""
+    out, ts = timed_samples(fn, warmup, iters)
+    return out, float(np.median(ts))
+
+
+def timed_samples(fn: Callable, warmup: int = 1, iters: int = 3):
+    """``timed`` with every timed call's wall µs, sorted."""
     out = None
     for _ in range(warmup):
         res = fn()
@@ -39,7 +45,16 @@ def timed(fn: Callable, warmup: int = 1, iters: int = 3):
         _sync()
         ts.append((time.perf_counter() - t0) * 1e6)
         out = res if out is None else out
-    return out, float(np.median(ts))
+    return out, sorted(ts)
+
+
+def wall_fields(samples) -> dict:
+    """The JAX suites' ``emit`` fields of a row's samples: min, median and
+    count (``benchmarks/ci_gate.py`` gates on ``wall_us_min``)."""
+    if not samples:
+        return {}
+    return dict(wall_us_min=samples[0], wall_us_median=samples[len(samples) // 2],
+                wall_us_reps=len(samples))
 
 
 def bench_graphs(scale: str = "small"):

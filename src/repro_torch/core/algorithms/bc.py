@@ -73,12 +73,14 @@ def bc_brandes(g: Graph, src: int, max_rounds: int = 100_000):
     set_at(bc, src, 0.0)
 
     # each forward round is two full-edge relaxes (discovery min + sigma
-    # add), each backward round one reversed relax
+    # add), each backward round one reversed relax, charged at the
+    # reverse-safe reducer's comm rate (a 2-D cut runs it full-mesh)
     fwd_rounds = bwd_rounds = max_lvl
     stats = RunStats.from_graph(
-        g, rounds=fwd_rounds + bwd_rounds,
+        g, relaxes=2 * fwd_rounds, rounds=fwd_rounds + bwd_rounds,
         edges_touched=(2 * fwd_rounds + bwd_rounds) * g.m,
         dense_rounds=fwd_rounds + bwd_rounds)
+    stats.add_comm(g, relaxes=bwd_rounds, reverse=True)
     return bc, stats
 
 

@@ -45,7 +45,7 @@ def _io_snapshot(g):
 def _dense_stats(g, rounds, io0=None) -> RunStats:
     """Stats for ``rounds`` dense rounds; on a tiered graph the edge and
     h2d accounting is the stream counters' delta since ``io0``."""
-    stats = RunStats.from_graph(g, rounds=rounds, dense_rounds=rounds)
+    stats = RunStats.from_graph(g, relaxes=rounds, rounds=rounds, dense_rounds=rounds)
     if io0 is not None:
         g.io.fold_delta(stats, io0)
     else:
@@ -144,6 +144,18 @@ def bfs_incremental(g, dist, delta, max_rounds: int = 100_000,
     return dist, eng.stats
 
 
+def _in_degrees(g) -> torch.Tensor:
+    """(n_pad,) in-degree from the CSC mirror: a ``Graph``'s ``in_deg``;
+    a sharded graph's in-edge shards carry none, so their flat
+    destinations are counted once (padding names the sentinel, which is
+    cleared)."""
+    in_deg = getattr(g, "in_deg", None)
+    if in_deg is not None:
+        return in_deg
+    counted = torch.bincount(g.in_dst.reshape(-1), minlength=g.n_pad).to(torch.int32)
+    return set_at(counted, g.sentinel, 0)
+
+
 def _dirop_scalars(g, dist, mask, pull_prev, visited, *, alpha, beta):
     """Everything the streamed dirop's host loop needs for one round, in
     one device computation fetched in a single transfer:
@@ -200,7 +212,7 @@ def _bfs_dirop_streamed(g, src: int, max_rounds: int, alpha: float,
         pull_prev = pull
         pulls += int(pull)
         rounds += 1
-    stats = RunStats.from_graph(g, rounds=rounds, edges_touched=work,
+    stats = RunStats.from_graph(g, relaxes=rounds, rounds=rounds, edges_touched=work,
                                 dense_rounds=rounds, pull_rounds=pulls)
     # edges_touched follows Beamer's work convention, not relaxed slots
     g.io.fold_delta(stats, io0, include_edges=False)
@@ -218,7 +230,7 @@ def bfs_dirop(g: Graph, src: int, max_rounds: int = 100_000,
         raise ValueError("bfs_dirop requires build_csc=True")
     if getattr(g, "is_tiered", False):
         return _bfs_dirop_streamed(g, src, max_rounds, alpha, beta)
-    in_deg = g.in_deg
+    in_deg = _in_degrees(g)
     total_edges = torch.tensor(g.m, dtype=torch.float32, device=g.device)
     zero_f = torch.zeros((), dtype=torch.float32, device=g.device)
 
@@ -245,7 +257,7 @@ def bfs_dirop(g: Graph, src: int, max_rounds: int = 100_000,
               torch.zeros((), dtype=torch.bool, device=g.device), zero_f, 0, 0)
     rounds, (dist, _, _, _, work, pulls) = run_host(
         step, state0, lambda s: torch.any(s[1]), max_rounds)
-    stats = RunStats.from_graph(g, rounds=rounds, edges_touched=work,
+    stats = RunStats.from_graph(g, relaxes=rounds, rounds=rounds, edges_touched=work,
                                 dense_rounds=rounds, pull_rounds=pulls)
     return dist, stats
 

@@ -27,7 +27,7 @@ def _init_labels(g: Graph):
 
 
 def _dense_stats(g, rounds) -> RunStats:
-    return RunStats.from_graph(g, rounds=rounds,
+    return RunStats.from_graph(g, relaxes=rounds, rounds=rounds,
                                edges_touched=rounds * g.m, dense_rounds=rounds)
 
 

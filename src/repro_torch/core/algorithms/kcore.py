@@ -54,7 +54,7 @@ def kcore_peel(g: Graph, k: int, max_rounds: int = 100_000):
         step, (g.valid_vertex_mask(), deg0, zero, True), lambda s: s[3],
         max_rounds)
     return alive, RunStats.from_graph(
-        g, rounds=rounds, edges_touched=int(work),
+        g, relaxes=rounds, rounds=rounds, edges_touched=int(work),
         dense_rounds=rounds)
 
 

@@ -36,7 +36,7 @@ class PRState(NamedTuple):
 def _dense_stats(g, rounds, io0=None) -> RunStats:
     """Stats for ``rounds`` dense rounds; on a tiered graph the edge and
     h2d accounting is the stream counters' delta since ``io0``."""
-    stats = RunStats.from_graph(g, rounds=rounds, dense_rounds=rounds)
+    stats = RunStats.from_graph(g, relaxes=rounds, rounds=rounds, dense_rounds=rounds)
     if io0 is not None:
         g.io.fold_delta(stats, io0)
     else:

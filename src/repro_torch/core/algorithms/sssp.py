@@ -26,7 +26,7 @@ def _init_dist(g: Graph, src: int):
 
 
 def _dense_stats(g, rounds) -> RunStats:
-    return RunStats.from_graph(g, rounds=rounds,
+    return RunStats.from_graph(g, relaxes=rounds, rounds=rounds,
                                edges_touched=rounds * g.m, dense_rounds=rounds)
 
 

@@ -94,11 +94,32 @@ class RunStats:
     substrate: str = dataclasses.field(default_factory=ops.get_substrate)
 
     @classmethod
-    def from_graph(cls, g, **kw) -> "RunStats":
+    def from_graph(cls, g, relaxes: int = 0, **kw) -> "RunStats":
         """Stats for a run on ``g``: its execution geometry and the
-        substrate a relaxation on it runs."""
-        return cls(substrate=ops.run_substrate(g), ndev=getattr(g, "ndev", 1),
-                   placement=getattr(g, "placement", "local"), **kw)
+        substrate a relaxation on it runs.  ``relaxes`` charges that many
+        cross-device label reductions to the comm counters (algorithms on
+        ``run_dense`` pass their round count)."""
+        st = cls(substrate=ops.run_substrate(g), ndev=getattr(g, "ndev", 1),
+                 placement=getattr(g, "placement", "local"), **kw)
+        st.add_comm(g, relaxes)
+        return st
+
+    def add_comm(self, g, relaxes: int = 1, scalar_collectives: int = 0,
+                 reverse: bool = False):
+        """Add the analytic comm model of ``relaxes`` label reductions on
+        ``g`` (nothing for a ``Graph``), plus ``scalar_collectives`` flag
+        collectives (one element per position pair each); ``reverse``
+        charges reversed-scatter relaxes at the reverse-safe reducer's
+        rate (cvc2d runs them full-mesh)."""
+        model = getattr(g, "comm_per_relax", None)
+        if model is None:
+            return
+        e, b, h = model(reverse=True) if reverse else model()
+        d = getattr(g, "ndev", 1)
+        flag = scalar_collectives * d * (d - 1) if d > 1 else 0
+        self.comm_elems += e * relaxes + flag
+        self.comm_bytes += b * relaxes + flag * 4
+        self.reduce_axis_hops += h * relaxes
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -361,16 +382,16 @@ def run_streamed(
 
 def _sparse_round(g, *, step, capacity, budget, lo_cap, lo_budget, cutoff):
     """One (capacity, budget)-rung sparse round over ``(labels, mask,
-    scalars)``, and the band predicate of the round after it: the body of
-    ``_sparse_stretch``'s loop.  (A single partition never escalates a
-    shard, so the step's escalation count is always 0.)"""
+    scalars, esc)``, and the band predicate of the round after it: the body
+    of ``_sparse_stretch``'s loop.  ``esc`` (int32) adds up the shards the
+    rounds escalated (always 0 on a single partition)."""
 
     def one_round(st):
-        labels, mask, _ = st
-        labels, mask, _ = step(g, labels, mask, capacity=capacity, budget=budget)
+        labels, mask, _, esc = st
+        labels, mask, n_esc = step(g, labels, mask, capacity=capacity, budget=budget)
         sc = fr.round_scalars(g, mask)
-        return (labels, mask, sc), fr.sparse_band(sc, capacity, lo_cap, budget,
-                                                  lo_budget, cutoff)
+        return (labels, mask, sc, esc + n_esc), fr.sparse_band(
+            sc, capacity, lo_cap, budget, lo_budget, cutoff)
 
     return one_round
 
@@ -378,12 +399,14 @@ def _sparse_round(g, *, step, capacity, budget, lo_cap, lo_budget, cutoff):
 def _sparse_stretch(g, labels, mask, scalars, limit, *, graphs, key, **rung):
     """Consecutive same-rung sparse rounds as one device do-while loop: the
     first round always runs, later ones while the band predicate holds.
-    Returns ``(labels, mask, scalars, rounds)``; ``scalars`` describe the
-    next round."""
-    (labels, mask, scalars), k = do_while(_sparse_round(g, **rung),
-                                          (labels, mask, scalars), limit,
-                                          graphs=graphs, key=key)
-    return labels, mask, scalars, k
+    Returns ``(labels, mask, scalars, rounds, escalations)``; ``scalars``
+    describe the next round, and the escalation count is a device int32
+    fetched with the stretch's round count."""
+    esc = torch.zeros((), dtype=torch.int32, device=mask.device)
+    (labels, mask, scalars, esc), k = do_while(_sparse_round(g, **rung),
+                                               (labels, mask, scalars, esc), limit,
+                                               graphs=graphs, key=key)
+    return labels, mask, scalars, k, esc
 
 
 def _dense_stretch(g, labels, mask, scalars, limit, *, step, cutoff, count_mass,
@@ -455,7 +478,8 @@ class SparseLadderEngine:
         self._round_keys = set()
         self.g = g
         self.cap_ladder = fr.ladder_capacities(g.n_pad, g.block_size)
-        self.budget_ladder = fr.ladder_capacities(g.m_pad, g.block_size)
+        # budgets are per merge-path expansion: per shard on a sharded graph
+        self.budget_ladder = fr.ladder_capacities(getattr(g, "epd", g.m_pad), g.block_size)
         # sparse rounds stop paying once they would cost about a dense one
         self.sparse_cutoff = self.budget_ladder[-1] // 2
         self._sparse_fn = sparse_step
@@ -508,18 +532,27 @@ class SparseLadderEngine:
             keys.add(key)
             self.stats.compiles += 1
 
-    def _settle(self, budget, k, mass=0):
+    def _settle(self, budget, k, mass=0, esc=0):
         """Fold k rounds into RunStats: dense when ``budget`` is None, then
         charged ``mass`` (their entry frontier mass) under
-        ``dense_cost="mass"``, else k·m."""
+        ``dense_cost="mass"``, else k·m; sparse rounds charge
+        budget·(k·ndev − esc) + epd·esc (``esc`` shards escalated to their
+        local dense relax; a single partition has ndev 1, no escalations),
+        and on a sharded graph every round its label reduction (a sparse
+        one also its escalation flag's collective)."""
+        g = self.g
         self.stats.rounds += k
         if budget is None:
             self.stats.dense_rounds += k
             self.stats.edges_touched += (
-                mass if self.dense_cost == "mass" else k * self.g.m)
+                mass if self.dense_cost == "mass" else k * g.m)
+            self.stats.add_comm(g, relaxes=k)
         else:
+            epd = getattr(g, "epd", g.m_pad)
             self.stats.sparse_rounds += k
-            self.stats.edges_touched += k * budget
+            self.stats.shard_escalations += esc
+            self.stats.edges_touched += budget * (k * self.stats.ndev - esc) + epd * esc
+            self.stats.add_comm(g, relaxes=k, scalar_collectives=k)
 
     def _pick(self, cap_need, mass_med):
         """Host rung decision ``(cap, budget, dense?)``; counts an overflow
@@ -542,16 +575,17 @@ class SparseLadderEngine:
         (labels, mask), round_no = resume_run(checkpointer, (labels, mask))
         scalars = fr.round_scalars(g, mask)
         rounds_left = max_rounds - round_no
-        pending = None  # (budget or None, rounds, mass) of the stretch in flight
+        # (budget or None, rounds, mass, escalations) of the stretch in flight
+        pending = None
         while True:
             # ONE blocking fetch per stretch: the stretch's counters and the
             # next round's ladder scalars in a single transfer
             if pending is None:
                 sc = fetch(scalars)
             else:
-                sc, k, mass = fetch(scalars, pending[1], pending[2])
+                sc, k, mass, esc = fetch(scalars, *pending[1:])
                 graphs.settle(k)
-                self._settle(pending[0], k, mass)
+                self._settle(pending[0], k, mass, esc)
                 rounds_left -= k
                 round_no += k
                 pending = None
@@ -573,24 +607,33 @@ class SparseLadderEngine:
                     g, labels, mask, scalars, rounds_left,
                     step=self._dense_fn, cutoff=self.sparse_cutoff,
                     count_mass=self.dense_cost == "mass", graphs=graphs, key=key)
-                pending = (None, k, mass)
+                pending = (None, k, mass, 0)
             else:
                 key = ("sparse", cap, budget, *key_mode)
                 self._note(self._stretch_keys, key)
-                labels, mask, scalars, k = _sparse_stretch(
+                labels, mask, scalars, k, esc = _sparse_stretch(
                     g, labels, mask, scalars, rounds_left, step=self._sparse_fn,
                     capacity=cap, budget=budget,
                     lo_cap=fr.ladder_below(cap, self.cap_ladder),
                     lo_budget=fr.ladder_below(budget, self.budget_ladder),
                     cutoff=self.sparse_cutoff, graphs=graphs, key=key)
-                pending = (budget, k, 0)
+                pending = (budget, k, 0, esc)
         return labels, mask
 
     def _run_per_round(self, labels, mask, max_rounds: int, checkpointer=None):
         g = self.g
         (labels, mask), rnd = resume_run(checkpointer, (labels, mask))
+        # a sparse round's escalation count (a device int32 on a sharded
+        # graph) rides back with the next round's scalars: one fetch a round
+        pending = None   # (escalation count, budget) of the last sparse round
         while rnd < max_rounds:
-            count, cap_need, mass_med, mass_tot = fetch(fr.round_scalars(g, mask))
+            sc = fr.round_scalars(g, mask)
+            if pending is None:
+                count, cap_need, mass_med, mass_tot = fetch(sc)
+            else:
+                (count, cap_need, mass_med, mass_tot), esc = fetch(sc, pending[0])
+                self._settle(pending[1], 1, esc=esc)
+                pending = None
             if count == 0:
                 break
             cap, budget, dense = self._pick(cap_need, mass_med)
@@ -600,10 +643,15 @@ class SparseLadderEngine:
                 self._settle(None, 1, mass_tot)
             else:
                 self._note(self._round_keys, (cap, budget))
-                labels, mask, _ = self._sparse_fn(
+                labels, mask, n_esc = self._sparse_fn(
                     g, labels, mask, capacity=cap, budget=budget)
-                self._settle(budget, 1)
+                if isinstance(n_esc, torch.Tensor):
+                    pending = (n_esc, budget)
+                else:
+                    self._settle(budget, 1, esc=n_esc)
             rnd += 1
             if checkpointer is not None:
                 checkpointer.maybe_save((labels, mask), rnd, self.stats.as_dict())
+        if pending is not None:   # the budget ended the run after a sparse round
+            self._settle(pending[1], 1, esc=fetch(pending[0]))
         return labels, mask

@@ -5,7 +5,8 @@ is a bool vertex mask; a ``SparseFrontier`` is a fixed-``capacity`` buffer
 of vertex indices plus a ``count`` that may exceed it (overflow).
 Capacities come from a geometric ladder, so a run uses few distinct
 shapes.  ``compact`` builds the worklist on the device without a host
-sync; the band predicates re-derive on the device the rung decision the
+sync (``compact_local`` every shard's worklist of a sharded graph in one
+pass); the band predicates re-derive on the device the rung decision the
 host dispatcher makes (``live_stable`` the shard schedule of a streamed
 stretch).
 """
@@ -89,6 +90,29 @@ def compact(mask: torch.Tensor, capacity: int, sentinel: int) -> SparseFrontier:
     return SparseFrontier(idx=buf[:capacity], count=count, sentinel=sentinel)
 
 
+def compact_local(mask: torch.Tensor, deg: torch.Tensor, capacity: int,
+                  sentinel: int):
+    """Shard-local compaction for the per-shard frontier ladder, every
+    shard in one pass: ``mask`` (the replicated (n_pad,) frontier)
+    restricted to each shard's vertices with local edges (``deg > 0``, the
+    (D, n_pad) shard degrees), compacted as ``compact`` does.  Returns
+    ``(idx, count)``: (D, capacity) int32 worklists and the (D,) int32 true
+    local frontier sizes, which may exceed ``capacity`` (a shard's
+    overflow signal)."""
+    nd, n_pad = deg.shape
+    m = mask.unsqueeze(0) & (deg > 0)
+    m[:, sentinel].fill_(False)
+    flags = m.to(torch.int32)
+    count = flags.sum(1, dtype=torch.int32)
+    rank = torch.cumsum(flags, 1, dtype=torch.int32) - 1
+    ids = torch.arange(n_pad, dtype=torch.int32, device=mask.device)
+    slot = torch.where(m & (rank < capacity), rank, capacity + ids)
+    buf = torch.full((nd, capacity + n_pad), sentinel, dtype=torch.int32,
+                     device=mask.device)
+    buf.scatter_(1, slot.long(), ids.expand(nd, -1))
+    return buf[:, :capacity], count
+
+
 def ladder_capacities(n_pad: int, block_size: int, base: int = 4) -> Tuple[int, ...]:
     """Geometric capacity ladder ending at n_pad."""
     caps = []
@@ -119,8 +143,19 @@ def round_scalars(g, mask: torch.Tensor) -> torch.Tensor:
     """Device-side ladder scalars for one round, as one (4,) int32 tensor
     ``(count, cap_need, mass_med, mass_tot)``, fetched in one transfer.
     On a single partition cap_need is the count and both masses are the
-    whole frontier's edge mass."""
+    whole frontier's edge mass.  On a sharded graph of D > 1 shards
+    cap_need is the largest *local* frontier (vertices with local edges),
+    mass_med the upper median of the per-shard frontier masses
+    (``sorted[D // 2]``, the reference's: the budget rung fits the typical
+    shard, a hub-heavy one escalates alone) and mass_tot their sum."""
     count = mask.sum(dtype=torch.int32)
+    shard_deg = getattr(g, "shard_deg", None)
+    if shard_deg is not None and getattr(g, "ndev", 1) > 1:
+        counts = (mask.unsqueeze(0) & (shard_deg > 0)).sum(1, dtype=torch.int32)
+        masses = torch.where(mask.unsqueeze(0), shard_deg, 0).sum(1, dtype=torch.int32)
+        srt = torch.sort(masses).values
+        return torch.stack([count, counts.max(), srt[srt.shape[0] // 2],
+                            masses.sum(dtype=torch.int32)])
     mass = g.budget_edge_mass(mask)
     return torch.stack([count, count, mass, mass])
 

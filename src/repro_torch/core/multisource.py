@@ -25,6 +25,12 @@ reports and the JAX package's ``ci_gate.py serve`` gates.
   slot masks; a dense round is one batched push.  Per-round dispatch is
   deliberate: the serving scheduler (``launch/graph_serve.py``) admits and
   retires lanes between rounds.
+* **Sharded graphs** (``core/sharded.py``) always relax dense: each shard's
+  lanes into a neutral (B, n_pad) accumulator, one full-mesh reduce, the
+  merge, and the changed lanes from ``batched_updated_mask`` (out of place,
+  through ``operators.batched_push_dense_``); the two-buffer in-place
+  rounds are the single ``Graph``'s.  Each dense round charges
+  ``batched_comm_per_relax`` to the comm counters.
 * **Termination** is per lane: a finished lane's row is all-False and sends
   no message; its label row is inert (axis-1 scatters never cross lanes)
   until the scheduler reuses the slot.
@@ -292,8 +298,8 @@ class MultiSourceEngine:
         return labels, fmat
 
     def _add_batched_comm(self, lanes: int):
-        # the sharded graph's comm model (ROADMAP queue 1, item 11); None
-        # on a Graph
+        # the sharded graph's comm model: the (B, n_pad) lanes at the
+        # full-mesh rate; None on a Graph
         model = getattr(self.g, "batched_comm_per_relax", None)
         if model is None:
             return

@@ -31,8 +31,12 @@ On an out-of-core graph (``core/tiered.py``: a ``TieredGraph``, or the
 ``StagedShards`` of a streamed stretch) ``push_dense`` and ``pull_dense``
 stream the shards the mask needs through the device buffer pool, and
 ``sparse_round`` lowers to that masked push: the schedule already is the
-frontier's shard set.  The sharded branches belong to a later slice of
-the port (ROADMAP queue 1, item 11); they raise ``NotImplementedError``.
+frontier's shard set.  On a ``ShardedGraph`` (``core/sharded.py``: edge
+shards on the virtual mesh) every operator dispatches to the graph's
+``sharded_*`` method: shard-local relaxes, one cross-position reduction,
+the merge; ``advance_sparse`` returns a ``ShardedEdgeBatch`` whose budget
+is per shard, and ``sparse_round`` runs the per-shard ladder (each shard
+escalating alone).  Deterministic adds go to ``sharded_det_*``.
 The batched operators (``batched_push_dense``, ``batched_relax_batch``,
 and their in-place forms ending in ``_``: core/multisource.py) relax B
 lanes of (B, n_pad) labels over one read of the edge list.
@@ -122,9 +126,8 @@ def _single_graph(g, what: str):
             f"{what} has no out-of-core branch: on a tiered graph only "
             "push_dense, pull_dense and sparse_round stream shards")
     if not isinstance(g, Graph):
-        raise NotImplementedError(
-            f"{what} on sharded graphs is not ported yet "
-            "(ROADMAP queue 1, item 11: the multi-device path)")
+        raise TypeError(f"{what} takes a Graph, a tiered graph or a ShardedGraph, "
+                        f"not {type(g).__name__}")
 
 
 def push_dense(
@@ -146,6 +149,12 @@ def push_dense(
         # ascending shard order (pool-size independent)
         return tiered(src_val, active, out_init, kind, use_weight, sub,
                       reverse=reverse, det=kind == "add" and _deterministic_add)
+    sharded = getattr(g, "sharded_push_dense", None)
+    if sharded is not None:
+        if kind == "add" and _deterministic_add:
+            # the canonical fixed-order tree over the flat edge list
+            return g.sharded_det_push(src_val, active, out_init, use_weight, reverse)
+        return sharded(src_val, active, out_init, kind, use_weight, sub, reverse)
     _single_graph(g, "push_dense")
     s, d = (g.col_idx, g.src_idx) if reverse else (g.src_idx, g.col_idx)
     if kind == "add" and _deterministic_add:
@@ -182,6 +191,11 @@ def pull_dense(
             "this tiered container holds only staged out-edge shards; "
             "pull runs on the TieredGraph itself (eager rounds), not "
             "inside a staged stretch")
+    sharded = getattr(g, "sharded_pull_dense", None)
+    if sharded is not None:
+        if kind == "add" and _deterministic_add:
+            return g.sharded_det_pull(src_val, active, out_init, use_weight)
+        return sharded(src_val, active, out_init, kind, use_weight, sub)
     _single_graph(g, "pull_dense")
     if not g.has_csc:
         raise ValueError("pull_dense requires build_csc=True")
@@ -211,8 +225,12 @@ class EdgeBatch:
 
 def advance_sparse(g: Graph, f: SparseFrontier, budget: int,
                    substrate: str | None = None) -> EdgeBatch:
-    """Merge-path expansion of a sparse frontier into ≤ budget edge slots."""
+    """Merge-path expansion of a sparse frontier into ≤ budget edge slots
+    (on a ``ShardedGraph`` ≤ budget per shard: a ``ShardedEdgeBatch``)."""
     sub = _resolve(substrate)
+    sharded = getattr(g, "sharded_advance", None)
+    if sharded is not None:
+        return sharded(f, budget, sub)
     _single_graph(g, "advance_sparse")
     fn = gk.advance_frontier if sub == "cuda" else gk.advance_ref
     kw = dict(budget=budget, sentinel=g.sentinel, m_pad=g.m_pad)
@@ -231,6 +249,11 @@ def relax_batch(
 ) -> torch.Tensor:
     """Apply a relaxation over an EdgeBatch (sparse counterpart of push_dense)."""
     sub = _resolve(substrate)
+    sharded = getattr(batch, "sharded_relax", None)
+    if sharded is not None:
+        if kind == "add" and _deterministic_add:
+            return batch.sharded_det_relax(src_val, out_init, use_weight)
+        return sharded(src_val, out_init, kind, use_weight, sub)
     if kind == "add" and _deterministic_add:
         return gk.det_relax_ref(batch.src, batch.dst, batch.w, batch.valid,
                                 src_val, out_init, use_weight)
@@ -255,6 +278,11 @@ def relax_edges(
     """Relax the full out-edge list under a per-edge validity mask
     (delta-stepping's light/heavy split)."""
     sub = _resolve(substrate)
+    sharded = getattr(g, "sharded_relax_edges", None)
+    if sharded is not None:
+        if kind == "add" and _deterministic_add:
+            return g.sharded_det_relax_edges(src_val, edge_mask, out_init, use_weight)
+        return sharded(src_val, edge_mask, out_init, kind, use_weight, sub)
     _single_graph(g, "relax_edges")
     if kind == "add" and _deterministic_add:
         return gk.det_relax_ref(g.src_idx, g.col_idx, g.edge_w, edge_mask,
@@ -331,6 +359,21 @@ def batched_push_dense_(
         raise NotImplementedError(
             "batched multi-source relax needs the whole CSR resident; "
             "the tiered streaming path is per-query")
+    sharded = getattr(g, "sharded_batched_push", None)
+    if sharded is not None:
+        # out of place on the mesh (one neutral accumulator per shard, one
+        # full-mesh reduce), then written into out; the changed lanes are
+        # batched_updated_mask's
+        seed = src_val if reseed else out.clone()
+        if kind == "add" and _deterministic_add:
+            if changed is not None:
+                raise ValueError("a sum has no changed lanes: changed is for min, max and or")
+            new = g.sharded_batched_det_push(src_val, active, seed, use_weight)
+        else:
+            new = sharded(src_val, active, seed, kind, use_weight, sub)
+        if changed is not None:
+            changed.copy_(batched_updated_mask(seed, new))
+        return out.copy_(new)
     _single_graph(g, "batched_push_dense")
     if kind == "add" and _deterministic_add:
         return _det_lanes_(lambda a, v, o: gk.det_push_ref(
@@ -384,6 +427,9 @@ def batched_relax_batch_(
     ``reseed``, copies ``src_val`` into ``out`` at those columns and the
     sentinel column only — O(|union| B), not O(B n_pad)."""
     sub = _resolve(substrate)
+    if hasattr(batch, "sharded_relax"):
+        raise ValueError("batched sparse rounds are single-partition: sharded "
+                         "lanes relax dense (batched_push_dense)")
     if kind == "add" and _deterministic_add:
         return _det_lanes_(lambda k, v, o: gk.det_relax_ref(
             batch.src, batch.dst, batch.w, k, v, o, use_weight), src_val,
@@ -445,10 +491,19 @@ def sparse_round(
     ``(new_out, escalated_shards)``; the count is 0 on a single partition.
     On a tiered graph the round is the masked push over the frontier's
     shards: the shards never fetched are the saving, and a worklist would
-    buy nothing more."""
+    buy nothing more.  On a ``ShardedGraph`` the round is the per-shard
+    ladder (``ShardedGraph.sharded_sparse_round``) and the count a 0-d
+    int32 on the device: the shards that escalated to their local dense
+    relax.  Under deterministic add a sharded round is the masked dense
+    push (the one canonical edge order; the same messages)."""
     sub = _resolve(substrate)
     if getattr(g, "is_tiered", False):
         return push_dense(g, src_val, mask, out_init, kind, use_weight, sub), 0
+    fused = getattr(g, "sharded_sparse_round", None)
+    if fused is not None:
+        if kind == "add" and _deterministic_add:
+            return push_dense(g, src_val, mask, out_init, kind, use_weight, sub), 0
+        return fused(src_val, mask, out_init, kind, use_weight, capacity, budget, sub)
     _single_graph(g, "sparse_round")
     f = fr.compact(mask, capacity, g.sentinel)
     batch = advance_sparse(g, f, budget, sub)

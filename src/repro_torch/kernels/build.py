@@ -47,9 +47,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     "graph_ops": {
         # src, dst, w, mask, src_val, out_init, out, m, n_pad, dtype, kind,
-        # use_weight, case, flag, stream
+        # use_weight, case, flag, gate (or null), stream
         "graph_ops_edge_relax": (
-            [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P, _P], _I),
         # src, dst, w, valid (or null), active, src_val, seed (or null), out,
         # m, n_pad, lanes, dtype, kind, use_weight, at (or null), n_at,
         # changed (or null), beyond (or null), words, flag, stream

@@ -21,6 +21,7 @@ from .ref import (  # noqa: F401
     det_relax_ref,
     det_scatter_add,
     edge_message,
+    gated,
     intersect_chunks_ref,
     intersect_ref,
     lanes_beyond,

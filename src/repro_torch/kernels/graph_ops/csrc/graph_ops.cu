@@ -80,6 +80,15 @@
 //   relax_batch's tail, whose slots all name one edge) and, where dst is
 //   random, one read of out per masked slot, as before.
 //
+//   The gate: an optional 0-d int32 on the device (null: none).  When it
+//   holds 0 the launch's result is out_init: out is seeded as always, and
+//   every block of the relax reads the gate first and returns.  The sharded
+//   sparse round (core/sharded.py) launches, per shard, the sparse relax of
+//   its advance gated on the shard not escalating and the dense relax of its
+//   masked edges gated on it escalating: a captured round cannot branch on
+//   the host, and running both under masks would sweep every shard's edges
+//   each round.  The plain version is torch.where(gate, relaxed, out_init).
+//
 //   Kernel names tell the cases apart in a profile:
 //   edge_relax<Push|Pull|Batch|Edges, dtype, Min|Max|Add|Or, weighted>, the
 //   case passed by the operator seam (push_dense, pull_dense and the
@@ -859,7 +868,9 @@ template <typename C, typename T, typename K, bool USE_W>
 __global__ void __launch_bounds__(kRelaxThreads)
     edge_relax(const int* __restrict__ src, const int* __restrict__ dst, const float* __restrict__ w,
                const uint8_t* __restrict__ mask, const T* __restrict__ src_val, T* out, long long m,
-               int head, bool aligned, const int* __restrict__ beyond) {
+               int head, bool aligned, const int* __restrict__ beyond,
+               const int* __restrict__ gate) {
+  if (gate != nullptr && *gate == 0) return;  // out keeps the seed: out_init
   bool clamp = false;
   if constexpr (Reducer<T, K>::kClamp) clamp = *beyond != 0;
   if constexpr (C::kRows) {
@@ -902,7 +913,7 @@ int sm_count() {
 template <typename C, typename T, typename K, bool USE_W>
 cudaError_t launch_relax(const int* src, const int* dst, const float* w, const uint8_t* mask,
                          const void* src_val, const void* out_init, void* out, long long m,
-                         long long n_pad, int* flag, cudaStream_t st) {
+                         long long n_pad, int* flag, const int* gate, cudaStream_t st) {
   using R = Reducer<T, K>;
   const T* sv = static_cast<const T*>(src_val);
   T* o = static_cast<T*>(out);
@@ -942,24 +953,24 @@ cudaError_t launch_relax(const int* src, const int* dst, const float* w, const u
   const long long most = C::kRows ? static_cast<long long>(per_sm) * sm_count() : INT_MAX;
   const int blocks = static_cast<int>(want < most ? want : most);
   edge_relax<C, T, K, USE_W><<<blocks, kRelaxThreads, 0, st>>>(src, dst, w, mask, sv, o, m, head,
-                                                              aligned, flag);
+                                                              aligned, flag, gate);
   return cudaGetLastError();
 }
 
 template <typename T, typename K, bool USE_W>
 cudaError_t launch_relax_case(int relax_case, const int* src, const int* dst, const float* w,
                               const uint8_t* mask, const void* src_val, const void* out_init,
-                              void* out, long long m, long long n_pad, int* flag,
+                              void* out, long long m, long long n_pad, int* flag, const int* gate,
                               cudaStream_t st) {
   switch (relax_case) {
     case CASE_PUSH:
-      return launch_relax<Push, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, st);
+      return launch_relax<Push, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, gate, st);
     case CASE_PULL:
-      return launch_relax<Pull, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, st);
+      return launch_relax<Pull, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, gate, st);
     case CASE_BATCH:
-      return launch_relax<Batch, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, st);
+      return launch_relax<Batch, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, gate, st);
     case CASE_EDGES:
-      return launch_relax<Edges, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, st);
+      return launch_relax<Edges, T, K, USE_W>(src, dst, w, mask, src_val, out_init, out, m, n_pad, flag, gate, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -969,13 +980,13 @@ template <typename T, typename K>
 cudaError_t launch_relax_w(bool use_w, int relax_case, const int* src, const int* dst,
                            const float* w, const uint8_t* mask, const void* src_val,
                            const void* out_init, void* out, long long m, long long n_pad, int* flag,
-                           cudaStream_t st) {
+                           const int* gate, cudaStream_t st) {
   if (use_w) {
     return launch_relax_case<T, K, true>(relax_case, src, dst, w, mask, src_val, out_init, out, m,
-                                         n_pad, flag, st);
+                                         n_pad, flag, gate, st);
   }
   return launch_relax_case<T, K, false>(relax_case, src, dst, w, mask, src_val, out_init, out, m,
-                                        n_pad, flag, st);
+                                        n_pad, flag, gate, st);
 }
 
 // ---- edge_relax_lanes -----------------------------------------------------------
@@ -1795,28 +1806,31 @@ const char* graph_ops_error_string(int code) {
 // and pull take a vertex mask, batch and edges a per-slot one).  mask is
 // bool (one byte): (n_pad,) for a vertex mask, else (m,).  out (n_pad,)
 // receives out_init reduced with the messages; flag: (1,) int32 scratch.
+// gate, or null: a device int32; 0 leaves out = out_init (the relax's blocks
+// return at once).
 int graph_ops_edge_relax(const void* src, const void* dst, const void* w, const void* mask,
                          const void* src_val, const void* out_init, void* out, long long m,
                          long long n_pad, int dtype, int kind, int use_weight, int relax_case,
-                         void* flag, void* stream) {
+                         void* flag, const void* gate, void* stream) {
   const int* s = static_cast<const int*>(src);
   const int* d = static_cast<const int*>(dst);
   const float* ww = static_cast<const float*>(w);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   int* f = static_cast<int*>(flag);
+  const int* gt = static_cast<const int*>(gate);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool uw = use_weight != 0;
   const int c = relax_case;
   if (dtype == DT_F32) {
-    if (kind == KIND_MIN) return launch_relax_w<float, Min>(uw, c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
-    if (kind == KIND_MAX) return launch_relax_w<float, Max>(uw, c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
-    if (kind == KIND_ADD) return launch_relax_w<float, Add>(uw, c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
+    if (kind == KIND_MIN) return launch_relax_w<float, Min>(uw, c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, gt, st);
+    if (kind == KIND_MAX) return launch_relax_w<float, Max>(uw, c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, gt, st);
+    if (kind == KIND_ADD) return launch_relax_w<float, Add>(uw, c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, gt, st);
   } else if (dtype == DT_I32 && !uw) {
-    if (kind == KIND_MIN) return launch_relax_case<int, Min, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
-    if (kind == KIND_MAX) return launch_relax_case<int, Max, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
-    if (kind == KIND_ADD) return launch_relax_case<int, Add, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
+    if (kind == KIND_MIN) return launch_relax_case<int, Min, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, gt, st);
+    if (kind == KIND_MAX) return launch_relax_case<int, Max, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, gt, st);
+    if (kind == KIND_ADD) return launch_relax_case<int, Add, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, gt, st);
   } else if (dtype == DT_U8 && !uw && kind == KIND_OR) {
-    return launch_relax_case<uint8_t, Or, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, st);
+    return launch_relax_case<uint8_t, Or, false>(c, s, d, ww, mk, src_val, out_init, out, m, n_pad, f, gt, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

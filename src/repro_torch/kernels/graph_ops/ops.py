@@ -49,7 +49,7 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device):
 
 def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
                use_weight: bool = True, vertex_mask: bool = True,
-               case: str | None = None):
+               case: str | None = None, gate=None):
     """Push/pull/batch relax over an edge list.
 
     ``mask``: (n_pad,) active-vertex bitmap when ``vertex_mask`` (push and
@@ -61,13 +61,19 @@ def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
     and edges; four consecutive slots a lane for pull), the grid (one
     resident wave, or a block per eight tiles) and the kernel's name in a
     profile (default: push or edges).
+
+    ``gate``: None, or a 0-d int32 tensor on the device.  Where it holds 0
+    the result is ``out_init``: the launch seeds ``out`` and every block of
+    the relax reads the gate first and returns (the sharded sparse round
+    picks a shard's sparse or dense relax this way, inside a captured
+    round).  The plain version is ``ref.gated``.
     """
     if src.device.type == "cpu":
         if vertex_mask:
-            return ref.push_ref(src, dst, w, src_val, mask, out_init, kind,
-                                use_weight)
-        return ref.relax_ref(src, dst, w, mask, src_val, out_init, kind,
-                             use_weight)
+            out = ref.push_ref(src, dst, w, src_val, mask, out_init, kind, use_weight)
+        else:
+            out = ref.relax_ref(src, dst, w, mask, src_val, out_init, kind, use_weight)
+        return out if gate is None else ref.gated(gate, out, out_init)
     dev = src.device
     if dev.type != "cuda":
         raise ValueError(f"edge_relax runs on cuda or cpu tensors, not {dev}")
@@ -93,6 +99,8 @@ def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
     _expect(mask, "mask", torch.bool, (n_pad if vertex_mask else m,), dev)
     _expect(src_val, "src_val", out_init.dtype, (n_pad,), dev)
     _expect(out_init, "out_init", out_init.dtype, (n_pad,), dev)
+    if gate is not None:
+        _expect(gate, "gate", torch.int32, (), dev)
     out = torch.empty_like(out_init)   # the launch seeds it from out_init
     if kind == "or" and (n_pad % 4 or out.data_ptr() % 4):
         raise ValueError("the 'or' kernel updates aligned 32-bit words: "
@@ -103,7 +111,7 @@ def edge_relax(src, dst, w, mask, src_val, out_init, *, kind: str = "min",
         src.data_ptr(), dst.data_ptr(), w.data_ptr(), mask.data_ptr(),
         src_val.data_ptr(), out_init.data_ptr(), out.data_ptr(), m, n_pad,
         _DTYPE[out.dtype], _KIND[kind], int(use_weight), _CASE[case][0],
-        flag.data_ptr(), _stream())
+        flag.data_ptr(), 0 if gate is None else gate.data_ptr(), _stream())
     build.check(lib, rc, "edge_relax")
     edge_relax.launches += 1
     return out.to(torch.bool) if widen else out

@@ -213,6 +213,12 @@ def advance_ref(f_idx, f_count, out_deg, row_ptr, col_idx, edge_w,
     return u, col_idx[e], edge_w[e], valid, total
 
 
+def gated(gate, relaxed, out_init):
+    """The plain version of a gated relax: ``relaxed`` where the 0-d int32
+    ``gate`` is nonzero, else ``out_init``."""
+    return torch.where(gate != 0, relaxed, out_init)
+
+
 def relax_ref(src, dst, w, valid, src_val, out_init, kind: str = "min",
               use_weight: bool = True):
     """Scatter-relax an expanded edge batch (per-edge validity mask)."""

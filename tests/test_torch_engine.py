@@ -255,14 +255,14 @@ def test_substrate_selection_api():
     with tops.deterministic_add_scope(True):
         assert tops.get_deterministic_add()
     assert not tops.get_deterministic_add()
-    # the batched operators run on a Graph (core/multisource.py); a
-    # container that is neither a Graph nor tiered (a sharded one) is
-    # refused, naming the multi-device slice
+    # the batched operators run on a Graph or a ShardedGraph
+    # (core/multisource.py); a container that is neither, nor tiered, is
+    # refused
     lanes = torch.zeros((2, 4))
     frontier = torch.zeros((2, 4), dtype=torch.bool)
-    sharded = types.SimpleNamespace(is_tiered=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tops.batched_push_dense(sharded, lanes, frontier, lanes)
+    other = types.SimpleNamespace(is_tiered=False)
+    with pytest.raises(TypeError, match="ShardedGraph"):
+        tops.batched_push_dense(other, lanes, frontier, lanes)
     for sub in tops.SUBSTRATES:
         one = torch.zeros(1, dtype=torch.int32)
         batch = tops.EdgeBatch(src=one, dst=one + 1, w=torch.ones(1),

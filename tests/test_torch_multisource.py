@@ -543,8 +543,12 @@ def test_batched_amortization_halves_per_source_edge_cost():
 
 def test_tiered_and_sharded_graphs_refuse_batches():
     """A tiered graph is refused, as in the reference (serving batches run
-    on resident graphs); a graph that is neither a Graph nor tiered (a
-    sharded container) is refused naming the multi-device slice."""
+    on resident graphs); a sharded graph takes them (the dense sweep on
+    its mesh: each lane the Graph's); a container that is none of these is
+    refused."""
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.sharded import shard_graph
+
     jg, tg, _ = _rmat_graph()
     fmat = tfr.batched_from_sources(T(np.array([1, 2])), tg.n_pad)
     lab = torch.zeros((2, tg.n_pad))
@@ -555,8 +559,11 @@ def test_tiered_and_sharded_graphs_refuse_batches():
         tms.ms_bfs(tt, [1, 2])
     with pytest.raises(NotImplementedError, match="resident"):
         tops.batched_push_dense(tt, lab, fmat, lab)
+    sg = shard_graph(tg, Mesh({"data": 2}, device="cpu"))
+    assert torch.equal(tops.batched_push_dense(sg, lab, fmat, lab + 9),
+                       tops.batched_push_dense(tg, lab, fmat, lab + 9))
     fake = types.SimpleNamespace(is_tiered=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="ShardedGraph"):
         tops.batched_push_dense(fake, lab, fmat, lab)
 
 
