@@ -204,7 +204,31 @@ non-zero exit before its last line:
    bitwise);
    then ``repro_torch.benchmarks.kernels_bench.run()`` (counts set to 0
    just before, read just after): the JAX suite's rows, the cuda BFS row
-   on the cuda substrate, all six kernels launched.
+   on the cuda substrate, all six kernels launched;
+13. the LM server (``launch/serve.py`` over ``models/transformer.py``'s
+   ``make_decode``; no hand-written kernel on its path, as the
+   reference's runs no Pallas kernel: the launch counts must not move):
+   13a the h2o-danube3 and deepseek-moe SMOKE configs, f32, served on the
+   card and on the CPU with the same weights (6 ragged requests on 4 and
+   2 slots), tokens equal and decode logits within 1e-4 of the row's
+   largest; 13b h2o-danube-3-4b FULL (24 layers, bf16) as
+   ``Server(max_batch=4, max_seq=512)`` on 8 seeded requests (prompts of
+   16-256 tokens, 16 new each), each request's tokens equal to its
+   greedy decode served alone at the same shapes (one decode step run
+   twice on the served cache shows whether the card's GEMMs repeat
+   bitwise; if not, logits within 2e-2 of the row's largest up to a near
+   tie), with the decode tick at B = 4 against its byte bound, prefill ms
+   per prompt token, generated tokens/s; 13c one request at danube's
+   width, depth cut to 2 layers, of a 4,080-token prompt and 48 new
+   tokens (positions past the 4,096 window): its tokens equal to the
+   argmax of ``forward`` over prompt + output wherever forward's top-2
+   gap exceeds 2 x 2e-2 of the row's largest, its last decode logits
+   within 2e-2 of forward's row; 13d deepseek-moe-16b at full width, 2
+   of its 28 layers, f32, 2 requests (8-token prompts, 4 new): the
+   card's tokens equal the CPU server's, the first tick's top-6 experts
+   printed on both sides; ``max_memory_allocated`` and the phase's
+   seconds; one JSON line ``{"lm_server": {...}}`` before the kernels
+   line.
 
 Agreement: labels, alive masks, core numbers and triangle counts bitwise;
 pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
@@ -256,6 +280,7 @@ the repository's sources are not beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -3180,6 +3205,319 @@ def bench_check(torch, kern, kernels_bench):
     return launches
 
 
+# ---- 13. the LM server -------------------------------------------------------
+
+# 13a: the SMOKE configs served on the CPU and on the card (slots each)
+LM_SMALL_SLOTS = {"h2o-danube3-smoke": 4, "deepseek-moe-smoke": 2}
+LM_SMALL_REQUESTS, LM_SMALL_SEQ = 6, 32
+# f32 logits, card against CPU: |card - cpu| <= 1e-4 x the row's largest |logit|
+LM_SMALL_RTOL = 1e-4
+# 13b: h2o-danube-3-4b FULL, 8 requests on 4 slots (prompts of 16-256 tokens)
+LM_BATCH, LM_SEQ = 4, 512
+LM_REQUESTS, LM_PROMPTS, LM_NEW = 8, (16, 256), 16
+# bf16 logits of two computations of one model (other GEMM shapes, other
+# sum orders): |a - b| <= 2e-2 (the CPU tests' bf16 tolerance) x the row's
+# largest |logit|; an argmax is held only where the top-2 gap exceeds
+# twice that
+LM_BF16_TOL = 2e-2
+# 13c: danube cut in depth to 2 layers (for time); the prompt and the generation pass
+# position 4096, the window
+LM_WINDOW_LAYERS, LM_WINDOW_PROMPT, LM_WINDOW_NEW = 2, 4080, 48
+# 13d: deepseek-moe-16b FULL cut in depth to 2 of its 28 layers, f32
+LM_MOE_LAYERS, LM_MOE_REQUESTS, LM_MOE_PROMPT, LM_MOE_NEW = 2, 2, 8, 4
+
+
+def lm_to(tree, device):
+    """A parameter tree copied to ``device``."""
+    return {k: lm_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def lm_bytes(tree):
+    return sum(lm_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def lm_specs(np, vocab, n, lens, news, seed):
+    """n seeded requests as (rid, prompt, max_new): prompt lengths and
+    max_new drawn from the closed ranges ``lens`` and ``news``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        n_prompt = int(rng.integers(lens[0], lens[1] + 1))
+        out.append((i, [int(t) for t in rng.integers(1, vocab, n_prompt)],
+                    int(rng.integers(news[0], news[1] + 1))))
+    return out
+
+
+def lm_serve(torch, serve, server, specs, routes=None):
+    """Serve fresh requests of ``specs`` through ``server``; returns (the
+    tokens by rid, each rid's decode logits by tick, per-call walls of
+    prefill and tick in ms, prefilled tokens, the serve wall in s).  With
+    ``routes = [layers module]``, the first tick's top-k experts of each
+    layer are appended to it."""
+    logits, walls = {}, {"prefill": [], "tick": []}
+    real_decode, real_prefill = server._decode, server._prefill
+
+    def timed(kind, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def decode(*a):
+        if routes is not None and not walls["tick"]:
+            L = routes[0]
+            real_route = L.moe_route
+
+            def route(*ra):
+                got = real_route(*ra)
+                routes.append(got[2].cpu().tolist())
+                return got
+            L.moe_route = route
+            try:
+                out = timed("tick", real_decode, *a)
+            finally:
+                L.moe_route = real_route
+        else:
+            out = timed("tick", real_decode, *a)
+        for r in server.slots:
+            if r is not None and not r.done:
+                logits.setdefault(r.rid, []).append(out[0][r.slot, 0].float())
+        return out
+
+    server._decode = decode
+    server._prefill = lambda *a: timed("prefill", real_prefill, *a)
+    reqs = [serve.Request(rid=i, prompt=list(p), max_new=m) for i, p, m in specs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(done) == len(specs) and all(r.reject_reason is None and len(r.out) == r.max_new
+                                          for r in done), "lm: a request was not served")
+    return ({r.rid: r.out for r in done}, logits, walls,
+            sum(len(p) - 1 for _, p, _ in specs), wall)
+
+
+def lm_rel_err(a, b):
+    """Over paired rows, the largest max|a - b| / max|b| (b the reference)."""
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max()
+                     / y.float().abs().max().cpu()) for x, y in zip(a, b))
+
+
+def lm_small(torch, np, T, serve, cfgs):
+    """13a: each SMOKE config served on the card and on the CPU with the
+    same carried weights, f32: tokens equal, decode logits within
+    LM_SMALL_RTOL."""
+    rows = {}
+    for cfg in cfgs:
+        params = T.init(torch.Generator(device=DEV).manual_seed(31), cfg, device=DEV)
+        specs = lm_specs(np, cfg.vocab_size, LM_SMALL_REQUESTS, (1, 12), (3, 8), seed=32)
+        slots = LM_SMALL_SLOTS[cfg.name]
+        card = lm_serve(torch, serve, serve.Server(cfg, params, slots, LM_SMALL_SEQ,
+                                                   device=DEV), specs)
+        cpu = lm_serve(torch, serve, serve.Server(cfg, lm_to(params, "cpu"), slots,
+                                                  LM_SMALL_SEQ, device="cpu"), specs)
+        check(card[0] == cpu[0], f"13a {cfg.name}: card tokens {card[0]} != cpu {cpu[0]}")
+        err = max(lm_rel_err(card[1][rid], cpu[1][rid]) for rid in card[1])
+        check(err <= LM_SMALL_RTOL, f"13a {cfg.name}: decode logits differ by {err} of the "
+                                    f"row's largest (limit {LM_SMALL_RTOL})")
+        rows[cfg.name] = dict(slots=slots, tokens=sum(map(len, card[0].values())),
+                              max_rel_err=err)
+        print(f"13a {cfg.name}: {len(specs)} requests on {slots} slots, card == cpu tokens "
+              f"{card[0]}, decode logits max rel err {err} (limit {LM_SMALL_RTOL})",
+              flush=True)
+    return rows
+
+
+def lm_same_stream(name, got, want):
+    """Two runs of one request, each (tokens, logits by tick): logits
+    within LM_BF16_TOL up to the tick where the tokens part, and a near tie
+    there.  Returns that tick (None: equal tokens)."""
+    (gt, gl), (wt, wl) = got, want
+    part = next((i for i, (a, b) in enumerate(zip(gt, wt)) if a != b), None)
+    for i in range(len(gt) if part is None else part + 1):
+        lim = LM_BF16_TOL * float(wl[i].abs().max())
+        err = float((gl[i] - wl[i]).abs().max())
+        check(err <= lim, f"{name}: tick {i} logits differ by {err} (limit {lim})")
+    if part is not None:
+        gap = abs(float(wl[part][gt[part]]) - float(wl[part][wt[part]]))
+        check(gap <= 2 * LM_BF16_TOL * float(wl[part].abs().max()),
+              f"{name}: tokens part at tick {part} where the top-2 gap is {gap}")
+    return part
+
+
+def lm_full(torch, np, T, serve, cfg, card):
+    """13b: danube FULL served on LM_BATCH slots, each request against its
+    isolated greedy decode at the same shapes; the timings."""
+    t0 = time.perf_counter()
+    params = T.init(torch.Generator(device=DEV).manual_seed(41), cfg, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    warm = lm_specs(np, cfg.vocab_size, 1, (4, 4), (2, 2), seed=42)
+    lm_serve(torch, serve, serve.Server(cfg, params, LM_BATCH, LM_SEQ, device=DEV), warm)
+    specs = lm_specs(np, cfg.vocab_size, LM_REQUESTS, LM_PROMPTS, (LM_NEW, LM_NEW), seed=43)
+    server = serve.Server(cfg, params, LM_BATCH, LM_SEQ, device=DEV)
+    tokens, logits, walls, n_prefill, wall = lm_serve(torch, serve, server, specs)
+    # run to run: one decode step twice, on two copies of the served cache
+    rng = np.random.default_rng(44)
+    step = (torch.from_numpy(rng.integers(1, cfg.vocab_size, (LM_BATCH, 1)).astype(
+        np.int32)).to(DEV),
+            torch.from_numpy(rng.integers(0, LM_SEQ, LM_BATCH).astype(np.int32)).to(DEV))
+    runs = [T.make_decode(cfg)(params, {k: v.clone() for k, v in server.cache.items()}, *step)
+            for _ in range(2)]
+    deterministic = bool(torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(runs[0][1][k], runs[1][1][k]) for k in ("k", "v")))
+    cache_bytes = lm_bytes(server.cache)
+    del runs, server
+    print(f"13b: one decode step run twice on copies of the served cache: bitwise equal "
+          f"{deterministic}", flush=True)
+    parts = {}
+    t1 = time.perf_counter()
+    for spec in specs:
+        alone = lm_serve(torch, serve, serve.Server(cfg, params, LM_BATCH, LM_SEQ, device=DEV),
+                         [spec])
+        rid = spec[0]
+        if deterministic:
+            check(tokens[rid] == alone[0][rid],
+                  f"13b: request {rid} served {tokens[rid]}, alone {alone[0][rid]}")
+        parts[rid] = lm_same_stream(f"13b request {rid}", (tokens[rid], logits[rid]),
+                                    (alone[0][rid], alone[1][rid]))
+    t_alone = time.perf_counter() - t1
+    ticks = sorted(walls["tick"])
+    # a tick reads every weight but the embedding (B rows of it) and every
+    # layer's whole (B, S_max) K and V cache
+    tick_bytes = (lm_bytes(params) - lm_bytes({"e": params["embed"]})
+                  + LM_BATCH * cfg.d_model * params["embed"].element_size() + cache_bytes)
+    n_gen = sum(map(len, tokens.values()))
+    row = dict(requests=len(specs), slots=LM_BATCH, max_seq=LM_SEQ,
+               prompt_tokens=sum(len(p) for _, p, _ in specs), generated=n_gen,
+               deterministic=deterministic, equal_tokens=all(p is None for p in parts.values()),
+               tick_ms_median=ticks[len(ticks) // 2], tick_ms_min=ticks[0],
+               tick_ms_max=ticks[-1], ticks=len(ticks), tick_bytes=tick_bytes,
+               tick_bound_ms=tick_bytes / H100_BYTES_PER_S * 1e3,
+               prefill_ms_per_token=sum(walls["prefill"]) / n_prefill,
+               generated_tokens_per_s=n_gen / wall, serve_s=wall, isolated_s=t_alone,
+               init_s=t_init, param_bytes=lm_bytes(params))
+    print(f"13b h2o-danube-3-4b FULL ({cfg.n_layers} layers, d_model {cfg.d_model}, bf16, "
+          f"{row['param_bytes']} parameter bytes) on {card}: {len(specs)} requests "
+          f"({row['prompt_tokens']} prompt tokens), served == isolated {row['equal_tokens']} "
+          f"(parted at {parts}); decode tick at B = {LM_BATCH} median "
+          f"{row['tick_ms_median']} ms (min {ticks[0]}, max {ticks[-1]}, {len(ticks)} ticks) "
+          f"against its byte bound {row['tick_bound_ms']} ms ({tick_bytes} bytes: the "
+          f"weights less the embedding's unread rows, and the cache); prefill "
+          f"{row['prefill_ms_per_token']} ms per prompt token; "
+          f"{row['generated_tokens_per_s']} generated tokens/s ({n_gen} in {wall} s); "
+          f"isolated runs {t_alone} s; init {t_init} s", flush=True)
+    return params, row
+
+
+def lm_window(torch, np, T, serve, cfg, params, card):
+    """13c: one request past the window at danube's width, cut in depth
+    to LM_WINDOW_LAYERS: its tokens against forward's argmax and its last
+    decode logits against forward's row."""
+    n = LM_WINDOW_LAYERS
+    cfgw = dataclasses.replace(cfg, n_layers=n)
+    pw = dict(params, layers=T.tree_map(lambda t: t[:n], params["layers"]))
+    spec = lm_specs(np, cfg.vocab_size, 1, (LM_WINDOW_PROMPT, LM_WINDOW_PROMPT),
+                    (LM_WINDOW_NEW, LM_WINDOW_NEW), seed=45)
+    t0 = time.perf_counter()
+    server = serve.Server(cfgw, pw, 1, LM_WINDOW_PROMPT + LM_WINDOW_NEW, device=DEV)
+    tokens, logits, _, _, _ = lm_serve(torch, serve, server, spec)
+    out, dec = tokens[0], logits[0]
+    del server
+    seq = torch.tensor([spec[0][1] + out[:-1]], device=DEV)
+    full = T.forward(pw, cfgw, seq)[0][0, LM_WINDOW_PROMPT - 1:].float()
+    check(bool(torch.isfinite(full).all()), "13c: forward's logits are not finite")
+    positions = list(range(LM_WINDOW_PROMPT - 1, LM_WINDOW_PROMPT - 1 + len(out)))
+    checked, worst = 0, 0.0
+    for i, pos in enumerate(positions):
+        row = full[i]
+        scale = float(row.abs().max())
+        top2 = row.topk(2).values
+        worst = max(worst, float((dec[i] - row).abs().max()) / scale)
+        if float(top2[0] - top2[1]) > 2 * LM_BF16_TOL * scale:
+            checked += 1
+            check(int(row.argmax()) == out[i],
+                  f"13c: position {pos}: decode chose {out[i]}, forward {int(row.argmax())}")
+    last = float((dec[-1] - full[-1]).abs().max()) / float(full[-1].abs().max())
+    check(last <= LM_BF16_TOL, f"13c: the last decode logits differ from forward's by {last} "
+                               f"of the row's largest (limit {LM_BF16_TOL})")
+    windowed = sum(p >= cfg.sliding_window for p in positions)
+    check(windowed > 0, "13c: no decode position passed the window")
+    row = dict(layers=n, prompt=LM_WINDOW_PROMPT, generated=len(out),
+               positions=[positions[0], positions[-1]], past_window=windowed,
+               argmax_checked=checked, last_rel_err=last, max_rel_err=worst,
+               seconds=time.perf_counter() - t0)
+    print(f"13c window (h2o-danube-3-4b width, depth cut to {n} of {cfg.n_layers} layers) "
+          f"on {card}: prompt {LM_WINDOW_PROMPT} + {len(out)} generated, decode at positions "
+          f"{positions[0]}..{positions[-1]} ({windowed} past the window of "
+          f"{cfg.sliding_window}); argmax == forward's at {checked} of {len(out)} positions "
+          f"(the others within a top-2 gap of {2 * LM_BF16_TOL} x the row's largest); last "
+          f"logits rel err {last}, max over positions {worst} (limit {LM_BF16_TOL}); "
+          f"{row['seconds']} s", flush=True)
+    return row
+
+
+def lm_moe(torch, np, T, L, serve, cfg, card):
+    """13d: deepseek-moe-16b at full width, cut to LM_MOE_LAYERS layers,
+    f32: the card's tokens against the same server's on the CPU."""
+    cfgm = dataclasses.replace(cfg, n_layers=LM_MOE_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    params = T.init(torch.Generator(device=DEV).manual_seed(51), cfgm, device=DEV)
+    specs = lm_specs(np, cfg.vocab_size, LM_MOE_REQUESTS, (LM_MOE_PROMPT, LM_MOE_PROMPT),
+                     (LM_MOE_NEW, LM_MOE_NEW), seed=52)
+    seq = LM_MOE_PROMPT + LM_MOE_NEW
+    routes = {"card": [L], "cpu": [L]}
+    card_run = lm_serve(torch, serve, serve.Server(cfgm, params, LM_MOE_REQUESTS, seq,
+                                                   device=DEV), specs, routes["card"])
+    host = lm_to(params, "cpu")
+    nbytes = lm_bytes(params)
+    del params
+    cpu_run = lm_serve(torch, serve, serve.Server(cfgm, host, LM_MOE_REQUESTS, seq,
+                                                  device="cpu"), specs, routes["cpu"])
+    del host
+    check(card_run[0] == cpu_run[0], f"13d: card tokens {card_run[0]} != cpu {cpu_run[0]}")
+    err = max(lm_rel_err(card_run[1][r], cpu_run[1][r]) for r in card_run[1])
+    routes = {k: v[1:] for k, v in routes.items()}
+    row = dict(layers=LM_MOE_LAYERS, param_bytes=nbytes, tokens=card_run[0],
+               max_rel_err=err, routes_equal=routes["card"] == routes["cpu"],
+               seconds=time.perf_counter() - t0)
+    print(f"13d deepseek-moe-16b (full width, depth cut to {LM_MOE_LAYERS} of {cfg.n_layers} "
+          f"layers, f32, {nbytes} parameter bytes) on {card}: card == cpu tokens "
+          f"{card_run[0]}; decode logits max rel err {err}; first tick's top-{cfg.moe.top_k} "
+          f"experts by layer and slot, card {routes['card']} cpu {routes['cpu']}; "
+          f"{row['seconds']} s", flush=True)
+    return row
+
+
+def lm_phase(torch, np, kern, T, L, serve, small, dense, moe, card):
+    """13: the LM server.  Its path runs no hand-written kernel (the
+    reference's LM server runs no Pallas kernel): the launch counts must
+    not move."""
+    t0 = time.perf_counter()
+    before = kern.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    small_rows = lm_small(torch, np, T, serve, small)
+    params, full = lm_full(torch, np, T, serve, dense, card)
+    window = lm_window(torch, np, T, serve, dense, params, card)
+    del params
+    torch.cuda.empty_cache()
+    moe_row = lm_moe(torch, np, T, L, serve, moe, card)
+    torch.cuda.empty_cache()
+    check(kern.launch_counts() == before, "13: the LM server launched a kernel")
+    row = {"small": small_rows, "dense": full, "window": window, "moe": moe_row,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t0, "card": card}
+    print(f"13: {row['seconds']} s, max_memory_allocated {row['max_memory_allocated']} "
+          f"on {card}", flush=True)
+    print(json.dumps({"lm_server": row}), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--communities", type=int, default=512,
@@ -3227,7 +3565,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.spmm_bsr import ref as sref
     from repro_torch.kernels.spmm_bsr import spmm_bsr as sk
-    from repro_torch.models import layers
+    from repro_torch.configs import deepseek_moe_16b as lm_deepseek
+    from repro_torch.configs import h2o_danube3_4b as lm_danube
+    from repro_torch.launch import serve as lm_serve_mod
+    from repro_torch.models import layers, transformer
     algos = (bfs, sssp, cc, pagerank)
     suite = (kcore, bc, tri)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3483,6 +3824,12 @@ def main() -> int:
     # 12. the kernels_bench entry point: its kernels on its inputs, then the run
     bench_errs = bench_kernels_check(torch, np, kernels_bench, fk, fref, sk, sref, ek, eref)
     bench_launches = bench_check(torch, kern, kernels_bench)
+    torch.cuda.empty_cache()
+
+    # 13. the LM server: SMOKE configs card against CPU, danube FULL, the
+    # window, deepseek-moe at full width
+    lm_phase(torch, np, kern, transformer, layers, lm_serve_mod,
+             (lm_danube.SMOKE, lm_deepseek.SMOKE), lm_danube.FULL, lm_deepseek.FULL, card)
 
     # every path's cuda launches: the three graph paths count graph_ops only
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,

@@ -1,0 +1,28 @@
+"""stablelm-3b [dense] — 32L d_model=2560 32H (MHA kv=32) d_ff=6912
+vocab=50304.  [hf:stabilityai/stablelm family; unverified]"""
+
+from ..models.transformer import LMConfig
+
+FULL = LMConfig(
+    name="stablelm-3b",
+    n_layers=32,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=32,
+    d_head=80,
+    d_ff=6912,
+    vocab_size=50304,
+    rope_theta=1e4,
+)
+
+SMOKE = LMConfig(
+    name="stablelm-smoke",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=4,
+    d_head=16,
+    d_ff=128,
+    vocab_size=512,
+    dtype="float32",
+)

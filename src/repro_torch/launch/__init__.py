@@ -1,1 +1,2 @@
-"""Entry points that serve the port's engine (``graph_serve``)."""
+"""Entry points that serve the port's engine (``graph_serve``) and its LMs
+(``serve``)."""

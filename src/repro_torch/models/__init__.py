@@ -1,1 +1,2 @@
-"""Model building blocks of the port (``layers``)."""
+"""Model building blocks of the port (``layers``) and the decoder-only LM
+built from them (``transformer``)."""

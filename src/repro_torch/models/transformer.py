@@ -1,0 +1,247 @@
+"""Decoder-only transformer LM (dense and MoE) with KV-cache serving, as the
+JAX package's ``models/transformer.py``.
+
+One implementation covers the five LM architectures of ``configs/``
+(qwen3-moe, deepseek-moe, h2o-danube3 with its sliding window, stablelm,
+glm4); the differences are config.  The parameter tree is the
+reference's: layers stacked along a leading ``n_layers`` dim, run here by
+a Python loop over that dim (the reference's ``lax.scan``).  The
+reference's sharding and compile knobs (``remat``, ``scan_layers``,
+``zero3_gather``, ``gather_experts``, ``seq_parallel``,
+``decode_seq_axes``) are kept as fields so a JAX config converts field
+for field; on one device they change no value.
+
+Training (``loss_fn``, ``make_train_step``) and the sharding rules are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import layers as L
+from .layers import params_from_numpy  # noqa: F401  (a whole tree: nested dicts recurse)
+from ..core.graph import _device
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: Optional[int] = None
+    moe: Optional[L.MoEConfig] = None
+    sliding_window: Optional[int] = None
+    rope_theta: float = 1e6
+    dtype: str = "bfloat16"
+    remat: bool = True
+    tie_embeddings: bool = False
+    qk_norm: bool = False
+    scan_layers: bool = True
+    lean_softmax: bool = False
+    zero3_gather: bool = True
+    gather_experts: bool = False
+    seq_parallel: bool = False
+    decode_seq_axes: Optional[tuple] = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def attn(self) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            d_head=self.head_dim,
+            rope_theta=self.rope_theta,
+            sliding_window=self.sliding_window,
+            qk_norm=self.qk_norm,
+            lean_softmax=self.lean_softmax,
+            decode_seq_axes=self.decode_seq_axes,
+        )
+
+    @property
+    def param_count(self) -> int:
+        """Total parameters (for 6·N·D roofline accounting)."""
+        D, H = self.d_model, self.head_dim
+        attn = D * (self.n_heads * H) + 2 * D * (self.n_kv_heads * H) \
+            + (self.n_heads * H) * D
+        if self.moe:
+            ff = self.moe.n_experts * 3 * D * self.moe.d_expert \
+                + D * self.moe.n_experts \
+                + (3 * D * self.moe.d_shared * self.moe.n_shared if self.moe.n_shared else 0)
+        else:
+            ff = 3 * D * self.d_ff
+        norms = 2 * D
+        emb = self.vocab_size * D * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ff + norms) + emb + D
+
+    @property
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k + shared experts only)."""
+        if not self.moe:
+            return self.param_count
+        D = self.d_model
+        full_ff = self.moe.n_experts * 3 * D * self.moe.d_expert
+        act_ff = self.moe.top_k * 3 * D * self.moe.d_expert
+        return self.param_count - self.n_layers * (full_ff - act_ff)
+
+
+def _dt(dtype) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, dtype)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and the same leaves of ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def layer(params_layers, i: int):
+    """Layer ``i``'s parameters: views into the stacked tree."""
+    return tree_map(lambda t: t[i], params_layers)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg: LMConfig, device=None):
+    """Random parameters from ``gen`` on ``device`` (the card by default;
+    ``gen`` must live there too), in the reference's tree and shapes."""
+    device = _device(device)
+    dt = _dt(cfg.dtype)
+
+    def layer_init():
+        p = {
+            "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+            "attn": L.attn_init(gen, cfg.attn, dt, device=device),
+            "mlp_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        }
+        if cfg.moe:
+            p["moe"] = L.moe_init(gen, cfg.d_model, cfg.moe, dt, device=device)
+        else:
+            p["mlp"] = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, device=device)
+        return p
+
+    # drawn a layer at a time into the stacked tensors (one layer's copy
+    # at a time beside them, not a second stack)
+    layers = None
+    for i in range(cfg.n_layers):
+        lp = layer_init()
+        if layers is None:
+            layers = tree_map(lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), lp)
+        tree_map(lambda dst, src: dst[i].copy_(src), layers, lp)
+        del lp
+
+    params = {
+        "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt, scale=1.0,
+                              device=device),
+        "layers": layers,
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt,
+                                         device=device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(cfg: LMConfig, lp, x, positions):
+    hn = L.rmsnorm(x, lp["attn_norm"])
+    h = x + L.attention(lp["attn"], cfg.attn, hn, positions)
+    hin = L.rmsnorm(h, lp["mlp_norm"])
+    if cfg.moe:
+        ff, aux = L.moe_block(lp["moe"], cfg.moe, hin)
+    else:
+        ff = L.swiglu(lp["mlp"], hin)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h + ff, aux
+
+
+def _unembed(params, cfg: LMConfig, x):
+    x = L.rmsnorm(x, params["final_norm"])
+    unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ unemb.to(x.dtype)
+
+
+def forward(params, cfg: LMConfig, tokens):
+    """tokens (B, S) → logits (B, S, V), aux loss."""
+    x = params["embed"][tokens].to(_dt(cfg.dtype))
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = _layer_fwd(cfg, layer(params["layers"], i), x, positions)
+        aux = aux + a
+    return _unembed(params, cfg, x), aux
+
+
+def make_prefill(cfg: LMConfig):
+    """Prefill: run the full sequence, return the logits."""
+
+    def prefill(params, tokens):
+        return forward(params, cfg, tokens)[0]
+
+    return prefill
+
+
+# ---------------------------------------------------------------------------
+# serving: the KV cache and one-token decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None, device=None):
+    """Zeroed caches (n_layers, batch, max_seq, n_kv_heads, head_dim) on
+    ``device`` (the card by default)."""
+    device = _device(device)
+    dt = _dt(dtype or cfg.dtype)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_layers(params, cfg: LMConfig, cache, tokens, pos, slot_mask=None):
+    """Every layer of one decode step, writing the cache in place; returns
+    the residual stream (B, 1, D) before the final norm."""
+    x = params["embed"][tokens].to(_dt(cfg.dtype))
+    attn = cfg.attn
+    step = L.decode_step(attn, pos, x.shape[0], cache["k"].shape[2], slot_mask, x.device)
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        h = L.rmsnorm(x, lp["attn_norm"])
+        a, _, _ = L.attention_decode(lp["attn"], attn, h, cache["k"][i], cache["v"][i],
+                                     None, step=step)
+        x = x + a
+        hin = L.rmsnorm(x, lp["mlp_norm"])
+        if cfg.moe:
+            ff, _ = L.moe_block(lp["moe"], cfg.moe, hin)
+        else:
+            ff = L.swiglu(lp["mlp"], hin)
+        x = x + ff
+    return x
+
+
+def make_decode(cfg: LMConfig):
+    """One-token decode against a KV cache.  ``decode(params, cache, tokens
+    (B, 1), pos () or (B,), slot_mask=None) -> (logits (B, 1, V), cache)``;
+    the cache's tensors are written in place (the reference's donated
+    buffers) and returned."""
+
+    def decode(params, cache, tokens, pos, slot_mask=None):
+        x = decode_layers(params, cfg, cache, tokens, pos, slot_mask)
+        return _unembed(params, cfg, x), cache
+
+    return decode

@@ -81,3 +81,17 @@ def test_entry_points_need_a_card_unless_asked():
         from_arrays({}, n=3, m=2, n_pad=512, m_pad=512, block_size=512)
     g = from_coo(src, dst, 3, device="cpu")
     assert g.device.type == "cpu"
+
+    # the LM serving path: the server, the model's init and its cache
+    from repro_torch.configs import h2o_danube3_4b
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import transformer as T
+
+    cfg = h2o_danube3_4b.SMOKE
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(cfg, max_batch=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_cache(cfg, 1, 8)
+    assert Server(cfg, max_batch=1, max_seq=8, device="cpu").cache["k"].device.type == "cpu"
