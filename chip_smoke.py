@@ -83,7 +83,7 @@ non-zero exit before its last line:
    crosses the most shards (a reversed max and min push of each vertex's
    shard to a fixed point; the hub's reach stays in one shard), each
    streaming more shards than the pool holds, and cc_dd_sparse, pr_push
-   (``OOC_PR_ITERS`` = 20 rounds; cc_dd_sparse ``OOC_CC_ROUNDS`` = 50) and pr_pull on the
+   (``OOC_PR_ITERS`` = 20 rounds; cc_dd_sparse ``OOC_CC_ROUNDS`` = 25) and pr_pull on the
    symmetrized one, every run from an empty pool:
    labels bitwise equal to
    the resident runs, ranks within PR_TOL, ``h2d_bytes == shards_streamed
@@ -213,8 +213,8 @@ non-zero exit before its last line:
    2 slots), tokens equal and decode logits within 1e-4 of the row's
    largest; 13b h2o-danube-3-4b FULL (24 layers, bf16) as
    ``Server(max_batch=4, max_seq=512)`` on 8 seeded requests (prompts of
-   16-256 tokens, 16 new each), each request's tokens equal to its
-   greedy decode served alone at the same shapes (one decode step run
+   16-256 tokens, 16 new each), the first 4 requests' tokens equal to
+   their greedy decodes served alone at the same shapes (one decode step run
    twice on the served cache shows whether the card's GEMMs repeat
    bitwise; if not, logits within 2e-2 of the row's largest up to a near
    tie), with the decode tick at B = 4 against its byte bound, prefill ms
@@ -228,7 +228,34 @@ non-zero exit before its last line:
    card's tokens equal the CPU server's, the first tick's top-6 experts
    printed on both sides; ``max_memory_allocated`` and the phase's
    seconds; one JSON line ``{"lm_server": {...}}`` before the kernels
-   line.
+   line;
+14. the LM trainer (``launch/train.py``'s ``Trainer`` over
+   ``transformer.make_train_step``, AdamW and the token pipeline; no
+   hand-written kernel on its path, as the reference's training runs no
+   Pallas kernel: the launch counts must not move): 14a ``tiny_model``,
+   the h2o-danube3 and deepseek-moe SMOKE configs and
+   ``tests/test_train_loop.py``'s MoE config, f32, each trained 6 steps
+   (4 x 32 tokens) on the card and on the CPU from the same weights:
+   every step's loss within 1e-5 relative, the final parameters within
+   rtol 1e-5 plus 2·lr a step; the last also with compressed gradients,
+   and crashed at step 3 and resumed on the card (final loss within 1e-5
+   of the uninterrupted run's; whether bitwise is printed); 14b one
+   ``make_train_step`` step at h2o-danube-3-4b's full width, depth cut to
+   2 layers, f32, 1 x 128 tokens, card against CPU from the same weights
+   and AdamW state: the loss within 1e-5 relative, the gradients' global
+   norm within 1e-4, the parameters within rtol 1e-5 plus 2·lr, and the
+   CPU side's wall; 14c h2o-danube-3-4b FULL (24 layers, bf16, remat)
+   trained 5 steps of 1 x 4,096 tokens (the reference's train_4k
+   sequence, the batch cut from 256) at the reference's lr_peak: finite
+   losses, step walls (median after the first) against 6·N·tokens over
+   989 TFLOP/s (N without the embedding's rows), tokens/s,
+   ``max_memory_allocated``, the bf16 weights that changed, step 0 run
+   twice from the initial state (whether it repeats bitwise: digests of
+   the parameters and moments), step 1 timed in two parts (the loss and
+   its gradient, then AdamW) and step 2 under ``torch.profiler`` (its ten
+   largest device ops, and the device time of each family: GEMM, softmax,
+   copy, reduce, index, other elementwise); one JSON line
+   ``{"lm_train": {...}}`` before the kernels line.
 
 Agreement: labels, alive masks, core numbers and triangle counts bitwise;
 pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
@@ -282,6 +309,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1165,7 +1193,7 @@ def bc_hazard(torch, ops, bc_mod, g, source, runs_by_sub):
 # ---- phases 9a-9d: fetches per stretch, det add, out of core, memtier --------
 
 LOOP_ROUNDS = 2_000            # the timed device-loop case's stretch, in rounds
-OOC_CC_ROUNDS = 50             # cc_dd_sparse's rounds out of core (depth cut from its
+OOC_CC_ROUNDS = 25             # cc_dd_sparse's rounds out of core (depth cut from its
                                # 326 to keep the run in its time; both sides stop there)
 OOC_PR_ITERS = 20              # pr_push's rounds out of core (depth cut from the JAX
                                # outofcore suite's 50: every round streams the graph)
@@ -1608,7 +1636,7 @@ DYN_BATCHES, DYN_BATCH_EDGES, DYN_POOLS = 6, 65_536, (16, 4)
 # of 4 every round misses all 16 shards and re-checks their CRCs, 0.76 s a
 # round on an H100 (PERF.md); DYN_SUB_ITERS rounds a solve for the substrate
 # check
-DYN_PR_BATCHES, DYN_DET_ITERS, DYN_SUB_ITERS = 1, 20, 20
+DYN_PR_BATCHES, DYN_DET_ITERS, DYN_SUB_ITERS = 1, 10, 20
 
 
 class _Stats(dict):
@@ -3215,6 +3243,9 @@ LM_SMALL_RTOL = 1e-4
 # 13b: h2o-danube-3-4b FULL, 8 requests on 4 slots (prompts of 16-256 tokens)
 LM_BATCH, LM_SEQ = 4, 512
 LM_REQUESTS, LM_PROMPTS, LM_NEW = 8, (16, 256), 16
+# the first LM_ISOLATED of them are decoded again alone (a cut from all 8,
+# for the script's time)
+LM_ISOLATED = 4
 # bf16 logits of two computations of one model (other GEMM shapes, other
 # sum orders): |a - b| <= 2e-2 (the CPU tests' bf16 tolerance) x the row's
 # largest |logit|; an argmax is held only where the top-2 gap exceeds
@@ -3377,7 +3408,7 @@ def lm_full(torch, np, T, serve, cfg, card):
           f"{deterministic}", flush=True)
     parts = {}
     t1 = time.perf_counter()
-    for spec in specs:
+    for spec in specs[:LM_ISOLATED]:
         alone = lm_serve(torch, serve, serve.Server(cfg, params, LM_BATCH, LM_SEQ, device=DEV),
                          [spec])
         rid = spec[0]
@@ -3393,7 +3424,7 @@ def lm_full(torch, np, T, serve, cfg, card):
     tick_bytes = (lm_bytes(params) - lm_bytes({"e": params["embed"]})
                   + LM_BATCH * cfg.d_model * params["embed"].element_size() + cache_bytes)
     n_gen = sum(map(len, tokens.values()))
-    row = dict(requests=len(specs), slots=LM_BATCH, max_seq=LM_SEQ,
+    row = dict(requests=len(specs), isolated=LM_ISOLATED, slots=LM_BATCH, max_seq=LM_SEQ,
                prompt_tokens=sum(len(p) for _, p, _ in specs), generated=n_gen,
                deterministic=deterministic, equal_tokens=all(p is None for p in parts.values()),
                tick_ms_median=ticks[len(ticks) // 2], tick_ms_min=ticks[0],
@@ -3405,6 +3436,7 @@ def lm_full(torch, np, T, serve, cfg, card):
     print(f"13b h2o-danube-3-4b FULL ({cfg.n_layers} layers, d_model {cfg.d_model}, bf16, "
           f"{row['param_bytes']} parameter bytes) on {card}: {len(specs)} requests "
           f"({row['prompt_tokens']} prompt tokens), served == isolated {row['equal_tokens']} "
+          f"(the first {LM_ISOLATED} decoded alone) "
           f"(parted at {parts}); decode tick at B = {LM_BATCH} median "
           f"{row['tick_ms_median']} ms (min {ticks[0]}, max {ticks[-1]}, {len(ticks)} ticks) "
           f"against its byte bound {row['tick_bound_ms']} ms ({tick_bytes} bytes: the "
@@ -3518,6 +3550,365 @@ def lm_phase(torch, np, kern, T, L, serve, small, dense, moe, card):
     return row
 
 
+# ---- 14. the LM trainer --------------------------------------------------------
+
+# 14a: small configs trained TRAIN_STEPS steps on the card and on the CPU from
+# the same weights (the trainer test's config, tiny_model, two SMOKE configs)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 32
+TRAIN_LR_PEAK = 3e-4           # the reference trainer's lr_peak
+# per-step losses card against CPU, relative; parameters within this rtol plus
+# an atol of 2·lr a step (a near-zero gradient's sign may differ between the
+# devices, and AdamW then moves that weight by ±lr)
+TRAIN_RTOL = 1e-5
+# 14b: h2o-danube-3-4b at full width, depth cut to 2 layers, f32, one step of
+# 1 x 128 tokens; the gradients' global norm card against CPU, relative
+TRAIN_WIDE_LAYERS, TRAIN_WIDE_SEQ = 2, 128
+TRAIN_NORM_RTOL = 1e-4
+# 14c: h2o-danube-3-4b FULL, bf16, 24 layers: the reference's train_4k sequence,
+# the global batch cut from 256 to 1 (one card's memory)
+TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, TRAIN_FULL_STEPS = 1, 4096, 5
+
+
+def train_loop_cfg(T, L):
+    """``tests/test_train_loop.py``'s model (MoE, f32, remat off)."""
+    return T.LMConfig(name="train-loop-moe", n_layers=2, d_model=32, n_heads=4,
+                      n_kv_heads=2, d_ff=64, vocab_size=64, dtype="float32", remat=False,
+                      moe=L.MoEConfig(n_experts=4, top_k=2, d_expert=32))
+
+
+def train_lrs(O, steps):
+    """The rates of steps 0..steps-1 (``make_train_step``'s schedule: 100
+    warm-up steps)."""
+    return [float(O.cosine_schedule(s, 100, steps, TRAIN_LR_PEAK)) for s in range(steps)]
+
+
+def record_steps(torch, trainer):
+    """Wrap ``trainer._step``: every call's loss and wall (host clock to
+    ``synchronize()``, ms) are appended to the returned lists; the real
+    step is returned too."""
+    losses, walls = [], []
+    real = trainer._step
+
+    def step(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a)
+        losses.append(float(out[2]["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer._step = step
+    return losses, walls, real
+
+
+def tree_excess(torch, T, got, want, rtol):
+    """The largest ``|got - want| - rtol·|want|`` over every leaf (``want``
+    moved to ``got``'s device a leaf at a time): within an atol when <= it."""
+    worst = [float("-inf")]
+
+    def leaf(g, w):
+        w = w.to(g.device).float()
+        worst[0] = max(worst[0], float(((g.float() - w).abs() - rtol * w.abs()).max()))
+
+    T.tree_map(leaf, got, want)
+    return worst[0]
+
+
+def tree_equal(torch, T, a, b):
+    same = [True]
+    T.tree_map(lambda x, y: same.__setitem__(0, same[0] and bool(torch.equal(x, y))), a, b)
+    return same[0]
+
+
+def train_pair(torch, T, TR, tcfg, params):
+    """``tcfg`` trained on the card and on the CPU from copies of
+    ``params`` (on the card): {device: (losses, trainer)}."""
+    runs = {}
+    for dev in (DEV, "cpu"):
+        p = T.tree_map(lambda t: t.to(dev, copy=True), params)
+        tr = TR.Trainer(tcfg, device=dev, params=p)
+        losses, _, _ = record_steps(torch, tr)
+        tr.run()
+        runs[dev] = (losses, tr)
+    return runs
+
+
+def train_agree(torch, T, O, name, runs, steps):
+    """Card against CPU: each step's loss within TRAIN_RTOL, the final
+    parameters within TRAIN_RTOL plus 2·lr a step.  Returns the row."""
+    (lc, tc_), (lh, th) = runs[DEV], runs["cpu"]
+    check(all(map(math.isfinite, lc)), f"14a {name}: a loss is not finite: {lc}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    check(err <= TRAIN_RTOL, f"14a {name}: card losses {lc} against cpu {lh}: rel err {err}")
+    atol = 2 * sum(train_lrs(O, steps))
+    excess = tree_excess(torch, T, tc_.params, th.params, TRAIN_RTOL)
+    check(excess <= atol, f"14a {name}: parameters differ by {excess} beyond rtol "
+                          f"{TRAIN_RTOL} (atol {atol})")
+    return dict(losses=lc, cpu_losses=lh, max_rel_err=err, param_excess=excess, atol=atol)
+
+
+def train_small(torch, np, T, L, O, TR, cfgs):
+    """14a: each config trained on the card and on the CPU from the same
+    weights; the trainer test's config also with compressed gradients and
+    crashed at step 3 and resumed on the card."""
+    rows, loop = {}, train_loop_cfg(T, L)
+    for cfg in cfgs + (loop,):
+        tcfg = TR.TrainerConfig(model=cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                steps=TRAIN_STEPS, lr_peak=TRAIN_LR_PEAK)
+        params = T.init(torch.Generator(device=DEV).manual_seed(61), cfg, device=DEV)
+        runs = train_pair(torch, T, TR, tcfg, params)
+        rows[cfg.name] = train_agree(torch, T, O, cfg.name, runs, TRAIN_STEPS)
+        print(f"14a {cfg.name}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+              f"card losses {runs[DEV][0]} == cpu within {rows[cfg.name]['max_rel_err']} "
+              f"(limit {TRAIN_RTOL}); parameters within rtol {TRAIN_RTOL} + "
+              f"{rows[cfg.name]['param_excess']} (atol {rows[cfg.name]['atol']})", flush=True)
+    full_loss, full = runs[DEV][0][-1], runs[DEV][1]
+
+    comp = train_pair(torch, T, TR, dataclasses.replace(tcfg, compress_grads=True), params)
+    rows["compressed"] = train_agree(torch, T, O, "compressed", comp, TRAIN_STEPS)
+    print(f"14a compressed gradients ({loop.name}): card losses {comp[DEV][0]} == cpu within "
+          f"{rows['compressed']['max_rel_err']}", flush=True)
+
+    directory = ROOT / "build" / f"chip_train_{os.getpid()}"
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        crash = dataclasses.replace(tcfg, steps=3, ckpt_dir=str(directory), ckpt_every=3)
+        TR.Trainer(crash, device=DEV, params=T.tree_map(torch.clone, params)).run()
+        resumed = TR.Trainer(dataclasses.replace(crash, steps=TRAIN_STEPS), device=DEV)
+        check(resumed.step_num == 3, f"14a resume: resumed at step {resumed.step_num}, not 3")
+        loss = float(resumed.run()["loss"])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    err = abs(loss - full_loss) / abs(full_loss)
+    check(err <= TRAIN_RTOL, f"14a resume: final loss {loss} against the uninterrupted "
+                             f"{full_loss} (rel err {err})")
+    bitwise = loss == full_loss and tree_equal(torch, T, resumed.params, full.params)
+    rows["resume"] = dict(loss=loss, uninterrupted=full_loss, rel_err=err, bitwise=bitwise)
+    print(f"14a resume on the card: crashed at step 3 and resumed to {TRAIN_STEPS}: final loss "
+          f"{loss} against the uninterrupted {full_loss} (rel err {err}, limit {TRAIN_RTOL}); "
+          f"bitwise {bitwise}", flush=True)
+    return rows
+
+
+def grad_norm_spy(T, O):
+    """Wrap ``T.value_and_grad`` (``make_train_step`` looks it up at each
+    call): each call's gradient global norm is appended to the returned
+    list.  Returns (norms, undo)."""
+    norms, real = [], T.value_and_grad
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        norms.append(float(O.global_norm(out[1])))
+        return out
+
+    T.value_and_grad = spy
+    return norms, lambda: setattr(T, "value_and_grad", real)
+
+
+def train_wide(torch, np, T, O, data, cfg, card):
+    """14b: one ``make_train_step`` step at danube's full width, cut to
+    TRAIN_WIDE_LAYERS layers, f32, on the card and on the CPU from the same
+    parameters and AdamW state: loss, gradient norm, parameters."""
+    cfgw = dataclasses.replace(cfg, n_layers=TRAIN_WIDE_LAYERS, dtype="float32")
+    params = T.init(torch.Generator(device=DEV).manual_seed(71), cfgw, device=DEV)
+    host = T.tree_map(lambda t: t.to("cpu", copy=True), params)
+    batch = data.TokenPipeline(cfg.vocab_size, TRAIN_WIDE_SEQ, 1, seed=72).batch(0)
+    step = T.make_train_step(cfgw, lr_peak=TRAIN_LR_PEAK, total_steps=TRAIN_STEPS)
+    norms, undo = grad_norm_spy(T, O)
+    out, walls = {}, {}
+    try:
+        for dev, p in ((DEV, params), ("cpu", host)):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, _, m = step(p, O.adamw_init(p), b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t0
+            out[dev] = (loss, float(m["lr"]), p)
+    finally:
+        undo()
+    (lc, lr, pc), (lh, _, ph) = out[DEV], out["cpu"]
+    err = abs(lc - lh) / abs(lh)
+    check(math.isfinite(lc) and err <= TRAIN_RTOL,
+          f"14b: card loss {lc} against cpu {lh} (rel err {err}, limit {TRAIN_RTOL})")
+    nerr = abs(norms[0] - norms[1]) / norms[1]
+    check(nerr <= TRAIN_NORM_RTOL, f"14b: gradient norm {norms[0]} against cpu {norms[1]} "
+                                   f"(rel err {nerr}, limit {TRAIN_NORM_RTOL})")
+    excess = tree_excess(torch, T, pc, ph, TRAIN_RTOL)
+    check(excess <= 2 * lr, f"14b: parameters differ by {excess} beyond rtol {TRAIN_RTOL} "
+                            f"(atol {2 * lr})")
+    row = dict(layers=TRAIN_WIDE_LAYERS, tokens=TRAIN_WIDE_SEQ, params=sum(
+        v.numel() for v in flat_leaves(params)), loss=lc, cpu_loss=lh, loss_rel_err=err,
+        grad_norm=norms[0], cpu_grad_norm=norms[1], norm_rel_err=nerr, lr=lr,
+        param_excess=excess, card_s=walls[DEV], cpu_s=walls["cpu"])
+    print(f"14b h2o-danube-3-4b width, depth cut to {TRAIN_WIDE_LAYERS} of {cfg.n_layers} "
+          f"layers, f32 ({row['params']} parameters) on {card}: one step of 1 x "
+          f"{TRAIN_WIDE_SEQ} tokens, loss {lc} against cpu {lh} (rel err {err}, limit "
+          f"{TRAIN_RTOL}); gradient norm {norms[0]} against {norms[1]} (rel err {nerr}, "
+          f"limit {TRAIN_NORM_RTOL}); parameters within rtol {TRAIN_RTOL} + {excess} "
+          f"(atol {2 * lr}); card {walls[DEV]} s, cpu {walls['cpu']} s", flush=True)
+    return row
+
+
+def flat_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in flat_leaves(v)]
+    return [tree]
+
+
+def bit_digest(torch, tree):
+    """(sum, sum of squares) of every leaf's bit patterns, int64 with
+    wrap-around, on the card: equal digests of two states mean equal bits
+    for any difference a rerun could make."""
+    acc = torch.zeros(2, dtype=torch.int64, device=DEV)
+    for t in flat_leaves(tree):
+        flat = t.reshape(-1).view({2: torch.int16, 4: torch.int32}[t.element_size()])
+        for c in flat.split(1 << 26):
+            c = c.to(torch.int64)
+            acc[0] += c.sum()
+            acc[1] += (c * c).sum()
+    return tuple(acc.tolist())
+
+
+TRAIN_OP_FAMILIES = (("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+                     ("softmax", ("SoftMax",)), ("copy", ("copy",)),
+                     ("reduce", ("reduce", "Reduce")),
+                     ("index", ("index", "scatter", "gather", "sort", "Sort")))
+
+
+def train_op_family(key):
+    """A device op's family by its kernel name; "elementwise" otherwise."""
+    return next((fam for fam, frags in TRAIN_OP_FAMILIES if any(f in key for f in frags)),
+                "elementwise")
+
+
+def train_full(torch, np, T, O, TR, cfg, card):
+    """14c: danube FULL (bf16, every layer) trained TRAIN_FULL_STEPS steps
+    through ``Trainer`` at TRAIN_FULL_BATCH x TRAIN_FULL_SEQ tokens: losses,
+    step walls against the 6·N·tokens bound on the bf16 tensor cores,
+    peak memory, the bf16 weights that changed; step 0 run twice from
+    copies of the initial state; step 1 timed in two parts (gradient,
+    AdamW); step 2 under the profiler."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TR.TrainerConfig(model=cfg, global_batch=TRAIN_FULL_BATCH, seq_len=TRAIN_FULL_SEQ,
+                            steps=TRAIN_FULL_STEPS, lr_peak=TRAIN_LR_PEAK, seed=81)
+    t0 = time.perf_counter()
+    tr = TR.Trainer(tcfg, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init = T.tree_map(lambda t: t.to("cpu", copy=True), tr.params)
+    losses, walls, real_step = record_steps(torch, tr)
+    t0 = time.perf_counter()
+    tr.run()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)), f"14c: a loss is not finite: {losses}")
+    changed = [0]
+    T.tree_map(lambda p, h: changed.__setitem__(0, changed[0] + int(
+        (p != h.to(DEV)).sum())), tr.params, init)
+    n_params = sum(t.numel() for t in flat_leaves(init))
+
+    # step 0 twice, each from the initial state (the parameters' host copy,
+    # zeroed moments, step 0)
+    batch0 = {k: v.to(DEV) for k, v in tr.pipeline.batch(0).items()}
+    digests = []
+    for _ in range(2):
+        T.tree_map(lambda p, h: p.copy_(h), tr.params, init)
+        opt = O.AdamWState(step=torch.zeros((), dtype=torch.int32, device=DEV),
+                           mu=T.tree_map(torch.Tensor.zero_, tr.opt.mu),
+                           nu=T.tree_map(torch.Tensor.zero_, tr.opt.nu))
+        p, opt, m = real_step(tr.params, opt, batch0)
+        digests.append((float(m["loss"]), bit_digest(torch, p), bit_digest(torch, opt.mu),
+                        bit_digest(torch, opt.nu)))
+    tr.opt = opt
+    repeats = digests[0] == digests[1]
+
+    # step 1 split: the loss and its gradient, then the AdamW update
+    batch = {k: v.to(DEV) for k, v in tr.pipeline.batch(1).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = T.value_and_grad(tr.params, cfg, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lr = O.cosine_schedule(tr.opt.step, 100, TRAIN_FULL_STEPS, TRAIN_LR_PEAK)
+    tr.params, tr.opt = O.adamw_update(grads, tr.opt, tr.params, lr)
+    torch.cuda.synchronize()
+    split = dict(grad_ms=(t1 - t0) * 1e3, adamw_ms=(time.perf_counter() - t1) * 1e3)
+    del grads
+
+    # one step under the profiler: the ten largest device ops, and each
+    # family's device time
+    batch = {k: v.to(DEV) for k, v in tr.pipeline.batch(2).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events, err = profiled(torch, lambda: real_step(tr.params, tr.opt, batch))
+    prof_wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted(((ev.key, ev.count, (getattr(ev, "self_device_time_total", 0) or 0) / 1e3)
+                  for ev in events or ()), key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in ops)
+    check(err is None and device_ms > 0, f"14c: the profiler recorded no device time ({err})")
+    families = {}
+    for key, calls, ms in ops:
+        fam = train_op_family(key)
+        row = families.setdefault(fam, dict(calls=0, device_ms=0.0))
+        row["calls"] += calls
+        row["device_ms"] += ms
+
+    tokens = TRAIN_FULL_BATCH * TRAIN_FULL_SEQ
+    n_mm = cfg.param_count - cfg.vocab_size * cfg.d_model     # less the embedding's rows
+    flops = 6 * n_mm * tokens
+    timed = sorted(walls[1:])
+    med = timed[len(timed) // 2]
+    row = dict(layers=cfg.n_layers, batch=TRAIN_FULL_BATCH, seq=TRAIN_FULL_SEQ,
+               steps=TRAIN_FULL_STEPS, params=n_params, losses=losses, step_ms=walls,
+               step_ms_median=med, tokens_per_s=tokens / med * 1e3, step_flops=flops,
+               step_bound_ms=flops / H100_BF16_TC_OPS_PER_S * 1e3,
+               flop_share=flops / (med / 1e3) / H100_BF16_TC_OPS_PER_S,
+               max_memory_allocated=peak, bf16_changed=changed[0], repeats_bitwise=repeats,
+               repeat_losses=[d[0] for d in digests], init_s=t_init, run_s=t_run,
+               profiled_wall_ms=prof_wall, profiled_device_ms=device_ms, **split,
+               families=families,
+               top_ops=[dict(op=k, calls=c, device_ms=ms) for k, c, ms in ops[:10]])
+    print(f"14c h2o-danube-3-4b FULL ({cfg.n_layers} layers, bf16, {n_params} parameters, "
+          f"remat {cfg.remat}) on {card}: {TRAIN_FULL_STEPS} steps of {TRAIN_FULL_BATCH} x "
+          f"{TRAIN_FULL_SEQ} tokens, losses {losses}; step ms {walls} (median after the first "
+          f"{med}); {row['tokens_per_s']} tokens/s; 6·N·tokens = {flops} FLOP, "
+          f"{row['flop_share']} of 989 TFLOP/s (bound {row['step_bound_ms']} ms); "
+          f"max_memory_allocated {peak}; bf16 weights changed {changed[0]} of {n_params}; "
+          f"step 0 run twice from the initial state: bitwise {repeats} (losses "
+          f"{row['repeat_losses']}); init {t_init} s", flush=True)
+    print(f"14c step 1 split: loss and gradient {split['grad_ms']} ms, AdamW "
+          f"{split['adamw_ms']} ms", flush=True)
+    print(f"14c profile of one step: wall {prof_wall} ms, device {device_ms} ms; by family "
+          f"{json.dumps(families)}", flush=True)
+    for k, c, ms in ops[:10]:
+        print(f"  14c op {k[:120]}: {c} calls, {ms} ms", flush=True)
+    return row
+
+
+def train_phase(torch, np, kern, T, L, O, TR, data, small, dense, card):
+    """14: the LM trainer.  Its path runs no hand-written kernel (the
+    reference's training runs no Pallas kernel): the launch counts must
+    not move."""
+    t0 = time.perf_counter()
+    before = kern.launch_counts()
+    small_rows = train_small(torch, np, T, L, O, TR, small)
+    torch.cuda.empty_cache()
+    wide = train_wide(torch, np, T, O, data, dense, card)
+    torch.cuda.empty_cache()
+    full = train_full(torch, np, T, O, TR, dense, card)
+    torch.cuda.empty_cache()
+    check(kern.launch_counts() == before, "14: the trainer launched a kernel")
+    row = {"small": small_rows, "wide": wide, "full": full,
+           "seconds": time.perf_counter() - t0, "card": card}
+    print(f"14: {row['seconds']} s on {card}", flush=True)
+    print(json.dumps({"lm_train": row}), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--communities", type=int, default=512,
@@ -3568,7 +3959,10 @@ def main() -> int:
     from repro_torch.configs import deepseek_moe_16b as lm_deepseek
     from repro_torch.configs import h2o_danube3_4b as lm_danube
     from repro_torch.launch import serve as lm_serve_mod
+    from repro_torch.launch import train as lm_train_mod
     from repro_torch.models import layers, transformer
+    from repro_torch import data as lm_data
+    from repro_torch import optim as lm_optim
     algos = (bfs, sssp, cc, pagerank)
     suite = (kcore, bc, tri)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3830,6 +4224,13 @@ def main() -> int:
     # window, deepseek-moe at full width
     lm_phase(torch, np, kern, transformer, layers, lm_serve_mod,
              (lm_danube.SMOKE, lm_deepseek.SMOKE), lm_danube.FULL, lm_deepseek.FULL, card)
+    torch.cuda.empty_cache()
+
+    # 14. the LM trainer: small configs card against CPU and a resume, danube
+    # at full width cut to 2 layers card against CPU, danube FULL
+    train_phase(torch, np, kern, transformer, layers, lm_optim, lm_train_mod, lm_data,
+                (lm_train_mod.tiny_model(512), lm_danube.SMOKE, lm_deepseek.SMOKE),
+                lm_danube.FULL, card)
 
     # every path's cuda launches: the three graph paths count graph_ops only
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,

@@ -1,2 +1,2 @@
 """Entry points that serve the port's engine (``graph_serve``) and its LMs
-(``serve``)."""
+(``serve``), and train the LMs (``train``)."""

@@ -6,25 +6,40 @@ One implementation covers the five LM architectures of ``configs/``
 glm4); the differences are config.  The parameter tree is the
 reference's: layers stacked along a leading ``n_layers`` dim, run here by
 a Python loop over that dim (the reference's ``lax.scan``).  The
-reference's sharding and compile knobs (``remat``, ``scan_layers``,
-``zero3_gather``, ``gather_experts``, ``seq_parallel``,
-``decode_seq_axes``) are kept as fields so a JAX config converts field
-for field; on one device they change no value.
+reference's sharding and compile knobs (``scan_layers``, ``zero3_gather``,
+``gather_experts``, ``seq_parallel``, ``decode_seq_axes``) are kept as
+fields so a JAX config converts field for field; on one device they
+change no value.
 
-Training (``loss_fn``, ``make_train_step``) and the sharding rules are not
-ported yet.
+Training: ``loss_fn`` (next-token cross-entropy plus the MoE aux loss),
+``value_and_grad`` (autograd in place of ``jax.value_and_grad``) and
+``make_train_step`` (a gradient and an AdamW step on the reference's
+cosine schedule).  ``remat`` checkpoints each layer when gradients are
+being recorded (``torch.utils.checkpoint``, non-reentrant) with a
+selective policy that keeps the weight GEMMs' outputs (``aten.mm``, the
+matrix products with no batch dims) and recomputes the rest in the
+backward pass: the twin of the reference's
+``dots_with_no_batch_dims_saveable``.  It changes no value: the
+recomputed ops run again on the same inputs.  Every op on the path has a
+backward, the MoE dispatch's write into its trash row, the router's
+stable sort and the masked softmax included.
+
+The sharding rules (``param_specs``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from . import layers as L
 from .layers import params_from_numpy  # noqa: F401  (a whole tree: nested dicts recurse)
 from ..core.graph import _device
+from ..optim import adamw_update, cosine_schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +123,10 @@ def tree_map(fn, tree, *rest):
 
 
 def layer(params_layers, i: int):
-    """Layer ``i``'s parameters: views into the stacked tree."""
+    """Layer ``i``'s parameters: views into the stacked tree, or the
+    ``i``-th of a list of per-layer trees (``value_and_grad``'s)."""
+    if isinstance(params_layers, list):
+        return params_layers[i]
     return tree_map(lambda t: t[i], params_layers)
 
 
@@ -178,16 +196,78 @@ def _unembed(params, cfg: LMConfig, x):
     return x @ unemb.to(x.dtype)
 
 
+# the remat policy: save what aten.mm returns, recompute every other op
+_SAVE_MM = functools.partial(create_selective_checkpoint_contexts, [torch.ops.aten.mm.default])
+
+
+def _remat_layer_fwd(cfg: LMConfig, lp, x, positions):
+    return checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False,
+                      context_fn=_SAVE_MM)
+
+
 def forward(params, cfg: LMConfig, tokens):
     """tokens (B, S) → logits (B, S, V), aux loss."""
     x = params["embed"][tokens].to(_dt(cfg.dtype))
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = _remat_layer_fwd if cfg.remat and torch.is_grad_enabled() else _layer_fwd
     for i in range(cfg.n_layers):
-        x, a = _layer_fwd(cfg, layer(params["layers"], i), x, positions)
+        x, a = body(cfg, layer(params["layers"], i), x, positions)
         aux = aux + a
     return _unembed(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: LMConfig, batch):
+    """(mean next-token cross-entropy + aux, {"nll", "aux"}) of ``batch``'s
+    tokens against its labels, the logits in f32."""
+    logits, aux = forward(params, cfg, batch["tokens"])
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    nll = torch.mean(logz - gold)
+    return nll + aux, {"nll": nll, "aux": aux}
+
+
+def value_and_grad(params, cfg: LMConfig, batch):
+    """((loss, metrics), grads): ``loss_fn`` and its gradient with respect
+    to every parameter, a tree like ``params`` in their dtypes (the
+    reference's ``jax.value_and_grad(loss_fn, has_aux=True)``).
+
+    Autograd runs on leaves that alias the parameters, one per layer for
+    the stacked ones, each with its slice of the gradient tree preset as
+    its ``.grad``: the backward pass adds each layer's gradient into its
+    slice in place, where differentiating through ``t[i]`` would build a
+    whole stacked-size gradient for every layer."""
+    grads = tree_map(torch.zeros_like, params)
+
+    def track(p, g):
+        w = p.detach().requires_grad_()
+        w.grad = g
+        return w
+
+    work = {k: tree_map(track, v, grads[k]) for k, v in params.items() if k != "layers"}
+    work["layers"] = [tree_map(lambda p, g: track(p[i], g[i]), params["layers"],
+                               grads["layers"]) for i in range(cfg.n_layers)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(work, cfg, batch)
+        loss.backward()
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
+
+
+def make_train_step(cfg: LMConfig, lr_peak: float = 3e-4, total_steps: int = 10_000):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: one gradient and one AdamW update at the cosine schedule's
+    rate (100 warm-up steps), the parameters and moments updated in place
+    (the reference's donated buffers); metrics: nll, aux, loss, lr."""
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(params, cfg, batch)
+        lr = cosine_schedule(opt_state.step, 100, total_steps, lr_peak)
+        params, opt_state = adamw_update(grads, opt_state, params, lr)
+        return params, opt_state, dict(metrics, loss=loss, lr=lr)
+
+    return train_step
 
 
 def make_prefill(cfg: LMConfig):

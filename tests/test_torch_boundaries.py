@@ -11,6 +11,7 @@ import ast
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -63,7 +64,7 @@ def _imports(path: Path):
 def test_no_jax_or_reference_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (path, name)
 
 
 def test_entry_points_need_a_card_unless_asked():
@@ -95,3 +96,22 @@ def test_entry_points_need_a_card_unless_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         T.init_cache(cfg, 1, 8)
     assert Server(cfg, max_batch=1, max_seq=8, device="cpu").cache["k"].device.type == "cpu"
+
+    # the LM training path: the trainer, the checkpoint restore, a carried
+    # optimizer state
+    from repro_torch.checkpoint import CheckpointManager, restore_resharded
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.optim import AdamWState, adamw_state_from_numpy
+
+    tcfg = TrainerConfig(model=cfg, global_batch=1, seq_len=8, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(tcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        adamw_state_from_numpy(AdamWState(step=np.int32(0), mu={}, nu={}))
+    tr = Trainer(tcfg, device="cpu")
+    assert tr.params["embed"].device.type == "cpu" and tr.opt.step.device.type == "cpu"
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointManager(d).save({"w": torch.ones(2)}, 1)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            restore_resharded({"w": torch.ones(2)}, d)
+        assert restore_resharded({"w": torch.ones(2)}, d, "cpu")[0]["w"].device.type == "cpu"
