@@ -83,7 +83,7 @@ non-zero exit before its last line:
    crosses the most shards (a reversed max and min push of each vertex's
    shard to a fixed point; the hub's reach stays in one shard), each
    streaming more shards than the pool holds, and cc_dd_sparse, pr_push
-   (``OOC_PR_ITERS`` = 20 rounds; cc_dd_sparse ``OOC_CC_ROUNDS`` = 25) and pr_pull on the
+   (``OOC_PR_ITERS`` = 20 rounds; cc_dd_sparse ``OOC_CC_ROUNDS`` = 15) and pr_pull on the
    symmetrized one, every run from an empty pool:
    labels bitwise equal to
    the resident runs, ranks within PR_TOL, ``h2d_bytes == shards_streamed
@@ -212,8 +212,8 @@ non-zero exit before its last line:
    card and on the CPU with the same weights (6 ragged requests on 4 and
    2 slots), tokens equal and decode logits within 1e-4 of the row's
    largest; 13b h2o-danube-3-4b FULL (24 layers, bf16) as
-   ``Server(max_batch=4, max_seq=512)`` on 8 seeded requests (prompts of
-   16-256 tokens, 16 new each), the first 4 requests' tokens equal to
+   ``Server(max_batch=4, max_seq=512)`` on 6 seeded requests (prompts of
+   16-256 tokens, 16 new each), the first 2 requests' tokens equal to
    their greedy decodes served alone at the same shapes (one decode step run
    twice on the served cache shows whether the card's GEMMs repeat
    bitwise; if not, logits within 2e-2 of the row's largest up to a near
@@ -255,7 +255,32 @@ non-zero exit before its last line:
    its gradient, then AdamW) and step 2 under ``torch.profiler`` (its ten
    largest device ops, and the device time of each family: GEMM, softmax,
    copy, reduce, index, other elementwise); one JSON line
-   ``{"lm_train": {...}}`` before the kernels line.
+   ``{"lm_train": {...}}`` before the kernels line;
+15. the GNN trainer (``configs/gnn_common.py``'s ``make_train_step`` and
+   ``build_gnn_step`` over ``models/gnn``, the sampler and
+   ``GraphBatchPipeline``; no hand-written kernel on its path, as the
+   reference's GNNs run no Pallas kernel: the launch counts must not
+   move): 15a the four SMOKE configs through ``gnn_smoke`` on the card,
+   then 5 steps on its molecule batch, card against CPU from the same
+   weights: every loss within 1e-5 relative, the gradients' global norm
+   within 1e-4, the final parameters within rtol 1e-5 plus 2·lr a step;
+   15b each architecture at its BASE width (MACE mul 128, l_max 2,
+   correlation 3) on the molecule shape at full size (128 graphs x 30
+   nodes x 64 edges, d_feat 16) through ``build_gnn_step(..., "molecule")``,
+   3 steps, card against CPU with 15a's limits, step ms and
+   ``max_memory_allocated``; 15c gcn-cora on minibatch_lg at full scale:
+   a seeded synthetic CSR built in numpy (n 232,965, m 114,615,892,
+   lognormal degrees with hubs and degree-0 vertices, uniform
+   destinations), (n, 602) features, 41 classes, seeds from
+   ``GraphBatchPipeline(n, 1024)``, fanouts (15, 10), 5 steps through the
+   sampled step on the card and on the CPU (which holds the same CSR):
+   every step's blocks bitwise, losses within 1e-5, sampling and step ms,
+   the batch's nodes and edges, peak memory; 15d gcn-cora on ogb_products
+   full-batch at full scale (N, M padded with ``_ru``, padding masked), the
+   card alone: 5 steps, finite losses, step ms against the step's byte
+   bound, ``max_memory_allocated``, step 2 under ``torch.profiler`` (its ten
+   largest device ops); one JSON line ``{"gnn_train": {...}}`` before the
+   kernels line.
 
 Agreement: labels, alive masks, core numbers and triangle counts bitwise;
 pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
@@ -1193,7 +1218,7 @@ def bc_hazard(torch, ops, bc_mod, g, source, runs_by_sub):
 # ---- phases 9a-9d: fetches per stretch, det add, out of core, memtier --------
 
 LOOP_ROUNDS = 2_000            # the timed device-loop case's stretch, in rounds
-OOC_CC_ROUNDS = 25             # cc_dd_sparse's rounds out of core (depth cut from its
+OOC_CC_ROUNDS = 15             # cc_dd_sparse's rounds out of core (depth cut from its
                                # 326 to keep the run in its time; both sides stop there)
 OOC_PR_ITERS = 20              # pr_push's rounds out of core (depth cut from the JAX
                                # outofcore suite's 50: every round streams the graph)
@@ -1636,7 +1661,7 @@ DYN_BATCHES, DYN_BATCH_EDGES, DYN_POOLS = 6, 65_536, (16, 4)
 # of 4 every round misses all 16 shards and re-checks their CRCs, 0.76 s a
 # round on an H100 (PERF.md); DYN_SUB_ITERS rounds a solve for the substrate
 # check
-DYN_PR_BATCHES, DYN_DET_ITERS, DYN_SUB_ITERS = 1, 10, 20
+DYN_PR_BATCHES, DYN_DET_ITERS, DYN_SUB_ITERS = 1, 5, 20
 
 
 class _Stats(dict):
@@ -3240,12 +3265,13 @@ LM_SMALL_SLOTS = {"h2o-danube3-smoke": 4, "deepseek-moe-smoke": 2}
 LM_SMALL_REQUESTS, LM_SMALL_SEQ = 6, 32
 # f32 logits, card against CPU: |card - cpu| <= 1e-4 x the row's largest |logit|
 LM_SMALL_RTOL = 1e-4
-# 13b: h2o-danube-3-4b FULL, 8 requests on 4 slots (prompts of 16-256 tokens)
+# 13b: h2o-danube-3-4b FULL, 6 requests on 4 slots (prompts of 16-256 tokens;
+# 8 to PR 23, cut for the script's time)
 LM_BATCH, LM_SEQ = 4, 512
-LM_REQUESTS, LM_PROMPTS, LM_NEW = 8, (16, 256), 16
-# the first LM_ISOLATED of them are decoded again alone (a cut from all 8,
-# for the script's time)
-LM_ISOLATED = 4
+LM_REQUESTS, LM_PROMPTS, LM_NEW = 6, (16, 256), 16
+# the first LM_ISOLATED of them are decoded again alone (a cut from all of
+# them, for the script's time: 4 to PR 23, 2 from PR 24)
+LM_ISOLATED = 2
 # bf16 logits of two computations of one model (other GEMM shapes, other
 # sum orders): |a - b| <= 2e-2 (the CPU tests' bf16 tolerance) x the row's
 # largest |logit|; an argmax is held only where the top-2 gap exceeds
@@ -3693,8 +3719,9 @@ def train_small(torch, np, T, L, O, TR, cfgs):
 
 def grad_norm_spy(T, O):
     """Wrap ``T.value_and_grad`` (``make_train_step`` looks it up at each
-    call): each call's gradient global norm is appended to the returned
-    list.  Returns (norms, undo)."""
+    call; ``T`` is ``models.transformer`` or ``configs.gnn_common``): each
+    call's gradient global norm is appended to the returned list.  Returns
+    (norms, undo)."""
     norms, real = [], T.value_and_grad
 
     def spy(*a, **kw):
@@ -3909,6 +3936,331 @@ def train_phase(torch, np, kern, T, L, O, TR, data, small, dense, card):
     return row
 
 
+# ---- phase 15: the GNN trainer ----------------------------------------------
+
+GNN_LR = 1e-3                  # make_train_step's rate
+GNN_SMALL_STEPS = 5            # 15a: the SMOKE configs on gnn_smoke's batch
+GNN_MOL_STEPS = 3              # 15b: BASE widths on the molecule shape
+GNN_SAMPLED_STEPS = 5          # 15c: gcn-cora on minibatch_lg
+GNN_FULL_STEPS = 5             # 15d: gcn-cora on ogb_products, the card alone
+GNN_PROFILED_STEP = 2          # 15d's step under the profiler
+# card against CPU: each step's loss relative, the gradients' global norm
+# relative, the parameters within rtol plus 2·lr a step (a near-zero
+# gradient's sign may differ, and AdamW then moves that weight by ±lr)
+GNN_RTOL, GNN_NORM_RTOL = 1e-5, 1e-4
+
+
+def gnn_run(torch, G, O, step, params, args, steps):
+    """``steps`` calls of ``step(params, opt, *args)`` from fresh AdamW
+    state: (losses, gradient norms, final params, walls in ms)."""
+    opt = O.adamw_init(params)
+    norms, undo = grad_norm_spy(G, O)
+    losses, walls = [], []
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, *args)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        undo()
+    return losses, norms, params, walls
+
+
+def gnn_pair(torch, G, C, O, step, params, args, steps):
+    """The same steps on the card and on the CPU from copies of
+    ``params`` (``args`` moved to each device): {device: gnn_run's}."""
+    runs = {}
+    for dev in (DEV, "cpu"):
+        p = C.tree_map(lambda t: t.to(dev, copy=True), params)
+        runs[dev] = gnn_run(torch, G, O, step, p, [x.to(dev) for x in args], steps)
+    return runs
+
+
+def gnn_agree(torch, C, label, runs, steps):
+    """Card against CPU: every loss within GNN_RTOL, every gradient norm
+    within GNN_NORM_RTOL, the final parameters within GNN_RTOL plus
+    2·lr a step.  Returns the row."""
+    (lc, nc, pc, wc), (lh, nh, ph, wh) = runs[DEV], runs["cpu"]
+    check(all(map(math.isfinite, lc)), f"{label}: a loss is not finite: {lc}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    check(err <= GNN_RTOL, f"{label}: card losses {lc} against cpu {lh}: rel err {err}")
+    nerr = max(abs(a - b) / b for a, b in zip(nc, nh))
+    check(nerr <= GNN_NORM_RTOL, f"{label}: gradient norms {nc} against cpu {nh}: rel err {nerr}")
+    excess = max(float(((g.cpu() - w).abs() - GNN_RTOL * w.abs()).max())
+                 for g, w in zip(C.leaves(pc), C.leaves(ph)))
+    atol = 2 * GNN_LR * steps
+    check(excess <= atol, f"{label}: parameters differ by {excess} beyond rtol {GNN_RTOL} "
+                          f"(atol {atol})")
+    return dict(losses=lc, cpu_losses=lh, loss_rel_err=err, grad_norms=nc, cpu_grad_norms=nh,
+                norm_rel_err=nerr, param_excess=excess, atol=atol, step_ms=wc, cpu_step_ms=wh)
+
+
+def median_after_first(walls):
+    timed = sorted(walls[1:])
+    return timed[len(timed) // 2]
+
+
+def gnn_small(torch, G, C, O, archs):
+    """15a: each SMOKE config through ``gnn_smoke`` on the card, then
+    GNN_SMALL_STEPS steps on its molecule batch, card against CPU."""
+    rows = {}
+    for model, cfgs in archs:
+        cfg = cfgs.SMOKE
+        smoke = G.gnn_smoke(model, cfg)
+        check(smoke["finite"], f"15a {cfg.name}: gnn_smoke's loss is not finite: {smoke}")
+        params = model.init(torch.Generator(device=DEV).manual_seed(91), cfg, device=DEV)
+        runs = gnn_pair(torch, G, C, O, G.make_train_step(model, cfg), params,
+                        (G.smoke_batch(cfg.d_feat, DEV),), GNN_SMALL_STEPS)
+        rows[cfg.name] = row = dict(gnn_smoke=smoke, **gnn_agree(
+            torch, C, f"15a {cfg.name}", runs, GNN_SMALL_STEPS))
+        print(f"15a {cfg.name}: gnn_smoke loss {smoke['loss']}; {GNN_SMALL_STEPS} steps, card "
+              f"losses {row['losses']} == cpu within {row['loss_rel_err']} (limit {GNN_RTOL}); "
+              f"gradient norms within {row['norm_rel_err']} (limit {GNN_NORM_RTOL}); "
+              f"parameters within rtol {GNN_RTOL} + {row['param_excess']} (atol {row['atol']})",
+              flush=True)
+    return rows
+
+
+def gnn_molecule(torch, np, G, C, O, archs, card):
+    """15b: each architecture at its BASE width on the molecule shape at
+    full size through ``build_gnn_step``, GNN_MOL_STEPS steps, card
+    against CPU; step ms and peak memory on the card."""
+    info = G.GNN_SHAPE_TABLE["molecule"]
+    B, n, m, F = info["batch"], info["n"], info["m"], info["d_feat"]
+    rng = np.random.default_rng(101)
+    args = [torch.from_numpy(a).to(DEV) for a in (
+        rng.normal(size=(B, n, F)).astype(np.float32),
+        rng.normal(size=(B, n, 3)).astype(np.float32),
+        rng.integers(0, n, (B, m)).astype(np.int32), rng.integers(0, n, (B, m)).astype(np.int32),
+        rng.normal(size=(B,)).astype(np.float32))]
+    rows = {}
+    for model, cfgs in archs:
+        cfg = cfgs.cfg_for_shape("molecule", info)
+        fn, specs = G.build_gnn_step(model, cfg, "molecule", info)
+        check([tuple(s.shape) for s in specs[2:]] == [tuple(a.shape) for a in args],
+              f"15b {cfg.name}: specs {[tuple(s.shape) for s in specs[2:]]}")
+        params = model.init(torch.Generator(device=DEV).manual_seed(102), cfg, device=DEV)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        runs = gnn_pair(torch, G, C, O, fn, params, args, GNN_MOL_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        row = gnn_agree(torch, C, f"15b {cfg.name}", runs, GNN_MOL_STEPS)
+        row.update(params=sum(t.numel() for t in C.leaves(params)), max_memory_allocated=peak,
+                   held_before=held, step_ms_median=median_after_first(row["step_ms"]))
+        rows[cfg.name] = row
+        print(f"15b {cfg.name} BASE ({row['params']} parameters) on {card}: {B} graphs x {n} "
+              f"nodes x {m} edges, {GNN_MOL_STEPS} steps: step ms {row['step_ms']} (median "
+              f"after the first {row['step_ms_median']}; cpu {row['cpu_step_ms']}); losses "
+              f"{row['losses']} == cpu within {row['loss_rel_err']}; gradient norms within "
+              f"{row['norm_rel_err']}; parameters within rtol {GNN_RTOL} + "
+              f"{row['param_excess']} (atol {row['atol']}); max_memory_allocated {peak} ({held} "
+              f"held before)", flush=True)
+    return rows
+
+
+def synthetic_csr(np, G, n, m, seed):
+    """A seeded CSR of n vertices and m edges, built in numpy: degrees
+    from a lognormal law (sigma 2: hubs of hundreds of thousands of edges,
+    and vertices of degree 0), destinations uniform.  Padded as the
+    sampled cell's arguments: ``row_ptr`` to ``_ru(N + 1)`` entries,
+    ``out_deg`` to N = ``_ru(n)``, ``col_idx`` to ``_ru(m)`` (padding:
+    degree 0, destination 0).  Returns (row_ptr, col_idx, out_deg)."""
+    rng = np.random.default_rng(seed)
+    w = rng.lognormal(0.0, 2.0, n)
+    deg = np.floor(w * (m / w.sum())).astype(np.int64)
+    deg[np.argsort(-w)[: m - int(deg.sum())]] += 1
+    N = G._ru(n)
+    row_ptr = np.full(G._ru(N + 1), m, np.int32)
+    row_ptr[0] = 0
+    row_ptr[1: n + 1] = np.cumsum(deg)
+    out_deg = np.zeros(N, np.int32)
+    out_deg[:n] = deg
+    col_idx = np.zeros(G._ru(m), np.int32)
+    col_idx[:m] = rng.integers(0, n, m, dtype=np.int32)
+    return row_ptr, col_idx, out_deg
+
+
+def gnn_sampled(torch, np, G, C, O, data, S, gcn, cfgs, card):
+    """15c: gcn-cora on minibatch_lg at full scale: a seeded synthetic CSR
+    (the card and the CPU hold the same), seeds from GraphBatchPipeline,
+    fanouts (15, 10), GNN_SAMPLED_STEPS steps through ``build_gnn_step``'s
+    sampled step on both; every step's blocks bitwise, losses within
+    GNN_RTOL; sampling and step ms, batch size, peak memory."""
+    info = G.GNN_SHAPE_TABLE["minibatch_lg"]
+    n, m, fanouts = info["n"], info["m"], info["fanouts"]
+    N, M = G._ru(n), G._ru(m)
+    cfg = cfgs.cfg_for_shape("minibatch_lg", info)
+    fn, specs = G.build_gnn_step(gcn, cfg, "sampled", info)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    row_ptr, col_idx, out_deg = synthetic_csr(np, G, n, m, 111)
+    t_csr = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV).manual_seed(112)
+    feats = torch.randn((N, info["d_feat"]), generator=gen, device=DEV)
+    labels = torch.randint(0, info["n_classes"], (N,), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    host = [torch.from_numpy(a) for a in (row_ptr, col_idx, out_deg)] + [feats.cpu(), labels.cpu()]
+    card_args = [t.to(DEV) for t in host[:3]] + [feats, labels]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check([tuple(s.shape) for s in specs[2:7]] == [tuple(t.shape) for t in card_args],
+          f"15c: specs {[tuple(s.shape) for s in specs[2:7]]}")
+    hubs, zeros = int(out_deg.max()), int((out_deg[:n] == 0).sum())
+
+    pipe = data.GraphBatchPipeline(n, info["batch"], seed=113)
+    params = gcn.init(torch.Generator(device=DEV).manual_seed(114), cfg, device=DEV)
+    state = {}
+    for dev in (DEV, "cpu"):
+        p = C.tree_map(lambda t: t.to(dev, copy=True), params)
+        state[dev] = (p, O.adamw_init(p))
+    losses = {DEV: [], "cpu": []}
+    sample_ms, step_ms, selfloops = [], [], 0
+    for step in range(GNN_SAMPLED_STEPS):
+        seeds = pipe.batch(step)
+        key = data.pipeline.fold_in(data.pipeline.prng_key(115), step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = S.sample_blocks_raw(*card_args[:3], seeds, key, fanouts)
+        torch.cuda.synchronize()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        want = S.sample_blocks_raw(*host[:3], seeds, key, fanouts)
+        same = torch.equal(blocks.seeds.cpu(), want.seeds) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(blocks.layers, want.layers))
+        check(same, f"15c step {step}: the card's sampled blocks differ from the CPU's")
+        for parents in (want.seeds,) + want.layers[:-1]:
+            selfloops += int((out_deg[parents.numpy()] == 0).sum())
+        for dev, args in ((DEV, card_args), ("cpu", host)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, met = fn(*state[dev], *args, seeds, key)
+            losses[dev].append(float(met["loss"]))
+            torch.cuda.synchronize()
+            if dev == DEV:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            state[dev] = (p, opt)
+    peak = torch.cuda.max_memory_allocated()
+    lc, lh = losses[DEV], losses["cpu"]
+    check(all(map(math.isfinite, lc)), f"15c: a loss is not finite: {lc}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    check(err <= GNN_RTOL, f"15c: card losses {lc} against cpu {lh}: rel err {err}")
+    batch = C.blocks_to_batch(feats, labels, blocks, fanouts)
+    row = dict(n=n, m=m, N=N, M=M, max_degree=hubs, degree_zero=zeros, csr_host_s=t_csr,
+               build_s=t_build, batch_nodes=batch.n_nodes, batch_edges=batch.n_edges,
+               degree_zero_parents=selfloops, losses=lc, cpu_losses=lh, loss_rel_err=err,
+               sample_ms=sample_ms, sample_ms_median=median_after_first(sample_ms),
+               step_ms=step_ms, step_ms_median=median_after_first(step_ms),
+               max_memory_allocated=peak, held_before=held)
+    print(f"15c gcn-cora on minibatch_lg on {card}: synthetic CSR n={n} m={m} (padded {N}, "
+          f"{M}; max degree {hubs}, {zeros} vertices of degree 0; numpy {t_csr} s, on the card "
+          f"{t_build} s); batch {info['batch']} seeds, fanouts {fanouts}: {batch.n_nodes} nodes, "
+          f"{batch.n_edges} edges; {GNN_SAMPLED_STEPS} steps, blocks bitwise card == cpu, "
+          f"{selfloops} parents of degree 0 (self loops); losses {lc} == cpu within {err} (limit {GNN_RTOL}); "
+          f"sampling ms {sample_ms} (median after the first {row['sample_ms_median']}); step ms "
+          f"(sampling included) {step_ms} (median after the first {row['step_ms_median']}); "
+          f"max_memory_allocated {peak} ({held} held before)", flush=True)
+    return row
+
+
+def gnn_full(torch, G, C, O, gcn, cfgs, card):
+    """15d: gcn-cora on ogb_products full-batch at full scale, the card
+    alone: src, dst and features from a seeded generator on the card,
+    padding masked as in the cell; GNN_FULL_STEPS steps, step
+    GNN_PROFILED_STEP under the profiler; step ms against the byte bound."""
+    info = G.GNN_SHAPE_TABLE["ogb_products"]
+    n, m = info["n"], info["m"]
+    N, M = G._ru(n), G._ru(m)
+    cfg = cfgs.cfg_for_shape("ogb_products", info)
+    fn, specs = G.build_gnn_step(gcn, cfg, "full", info)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEV).manual_seed(121)
+    i32 = torch.int32
+    src = torch.randint(0, n, (M,), generator=gen, device=DEV, dtype=i32)
+    dst = torch.randint(0, n, (M,), generator=gen, device=DEV, dtype=i32)
+    src[m:] = N - 1                # padding edges on a padding vertex, masked
+    dst[m:] = N - 1
+    args = (torch.randn((N, info["d_feat"]), generator=gen, device=DEV),
+            torch.zeros((N, 3), device=DEV), src, dst,
+            torch.randint(0, info["n_classes"], (N,), generator=gen, device=DEV, dtype=i32),
+            torch.arange(N, device=DEV) < n, torch.arange(M, device=DEV) < m)
+    check([(tuple(s.shape), s.dtype) for s in specs[2:]] == [(tuple(a.shape), a.dtype)
+                                                             for a in args],
+          "15d: the arguments do not match build_gnn_step's specs")
+    params = gcn.init(torch.Generator(device=DEV).manual_seed(122), cfg, device=DEV)
+    opt = O.adamw_init(params)
+    losses, walls, events, err = [], [], None, None
+    for step in range(GNN_FULL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == GNN_PROFILED_STEP:
+            out = []
+            events, err = profiled(torch, lambda: out.append(fn(params, opt, *args)))
+            params, opt, met = out[0]
+        else:
+            params, opt, met = fn(params, opt, *args)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)), f"15d: a loss is not finite: {losses}")
+    ops = sorted(((ev.key, ev.count, (getattr(ev, "self_device_time_total", 0) or 0) / 1e3)
+                  for ev in events or ()), key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in ops)
+    check(err is None and device_ms > 0, f"15d: the profiler recorded no device time ({err})")
+    # the least traffic: per layer and direction (forward, backward), src and
+    # dst read once and a width-w f32 row gathered and scattered per edge (w =
+    # min(d_in, d_out) = d_hidden, the aggregate-in-the-narrower-width order),
+    # and the features read once
+    width = cfg.d_hidden
+    nbytes = cfg.n_layers * 2 * M * (4 + 4 + 2 * 4 * width) + N * info["d_feat"] * 4
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    timed = [w for i, w in enumerate(walls) if i not in (0, GNN_PROFILED_STEP)]
+    med = sorted(timed)[len(timed) // 2]
+    row = dict(n=n, m=m, N=N, M=M, losses=losses, step_ms=walls, step_ms_median=med,
+               bound_bytes=nbytes, bound_ms=bound, bound_share=bound / med,
+               bound_formula="n_layers * 2 * M * (4 + 4 + 2 * 4 * d_hidden) + N * d_feat * 4",
+               max_memory_allocated=peak, held_before=held, profiled_step=GNN_PROFILED_STEP,
+               profiled_device_ms=device_ms, profiled_share_of_step=device_ms / med,
+               top_ops=[dict(op=k, calls=c, device_ms=ms) for k, c, ms in ops[:10]])
+    print(f"15d gcn-cora on ogb_products full batch on {card}: N={N} M={M} (n={n}, m={m}), "
+          f"{GNN_FULL_STEPS} steps, losses {losses}; step ms {walls} (median of the steps "
+          f"neither first nor profiled {med}); byte bound {nbytes} B = {bound} ms "
+          f"({row['bound_formula']}), {row['bound_share']} of it reached; max_memory_allocated "
+          f"{peak} ({held} held before); profiled step {GNN_PROFILED_STEP}: device {device_ms} "
+          f"ms ({row['profiled_share_of_step']} of the median step)", flush=True)
+    for k, c, ms in ops[:10]:
+        print(f"  15d op {k[:120]}: {c} calls, {ms} ms", flush=True)
+    return row
+
+
+def gnn_phase(torch, np, kern, G, C, O, data, S, archs, card):
+    """15: the GNN trainer.  Its path runs no hand-written kernel (the
+    reference's GNNs run no Pallas kernel): the launch counts must not
+    move."""
+    t0 = time.perf_counter()
+    before = kern.launch_counts()
+    small = gnn_small(torch, G, C, O, archs)
+    molecule = gnn_molecule(torch, np, G, C, O, archs, card)
+    gcn, gcn_cfgs = archs[0]
+    sampled = gnn_sampled(torch, np, G, C, O, data, S, gcn, gcn_cfgs, card)
+    torch.cuda.empty_cache()
+    full = gnn_full(torch, G, C, O, gcn, gcn_cfgs, card)
+    torch.cuda.empty_cache()
+    check(kern.launch_counts() == before, "15: the GNN trainer launched a kernel")
+    row = {"small": small, "molecule": molecule, "sampled": sampled, "full": full,
+           "seconds": time.perf_counter() - t0, "card": card}
+    print(f"15: {row['seconds']} s on {card}", flush=True)
+    print(json.dumps({"gnn_train": row}), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--communities", type=int, default=512,
@@ -3963,6 +4315,14 @@ def main() -> int:
     from repro_torch.models import layers, transformer
     from repro_torch import data as lm_data
     from repro_torch import optim as lm_optim
+    from repro_torch.configs import egnn as gnn_egnn
+    from repro_torch.configs import gcn_cora as gnn_gcn
+    from repro_torch.configs import gnn_common
+    from repro_torch.configs import mace as gnn_mace
+    from repro_torch.configs import nequip as gnn_nequip
+    from repro_torch.graphs import sampler as gnn_sampler
+    from repro_torch.models.gnn import common as gnn_c
+    from repro_torch.models.gnn import egnn, gcn, mace, nequip
     algos = (bfs, sssp, cc, pagerank)
     suite = (kcore, bc, tri)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4231,6 +4591,13 @@ def main() -> int:
     train_phase(torch, np, kern, transformer, layers, lm_optim, lm_train_mod, lm_data,
                 (lm_train_mod.tiny_model(512), lm_danube.SMOKE, lm_deepseek.SMOKE),
                 lm_danube.FULL, card)
+    torch.cuda.empty_cache()
+
+    # 15. the GNN trainer: SMOKE configs card against CPU, BASE widths on the
+    # molecule shape card against CPU, gcn-cora on minibatch_lg and on
+    # ogb_products at full scale
+    gnn_phase(torch, np, kern, gnn_common, gnn_c, lm_optim, lm_data, gnn_sampler,
+              ((gcn, gnn_gcn), (egnn, gnn_egnn), (nequip, gnn_nequip), (mace, gnn_mace)), card)
 
     # every path's cuda launches: the three graph paths count graph_ops only
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,

@@ -1,4 +1,5 @@
 """Deterministic input pipelines, as ``repro.data``: ``TokenPipeline``
-(the LM trainer's batches)."""
+(the LM trainer's batches) and ``GraphBatchPipeline`` (the GNN trainer's
+seed nodes)."""
 
-from .pipeline import TokenPipeline  # noqa: F401
+from .pipeline import GraphBatchPipeline, TokenPipeline  # noqa: F401

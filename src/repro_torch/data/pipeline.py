@@ -18,7 +18,11 @@ degree-5 polynomial, with fused multiply-adds), which equals it bitwise
 where a correctly rounded exp differs by an ulp on a tenth of the inputs
 and moves about 3e-5 of the tokens across an integer at V = 32,000.
 
-``GraphBatchPipeline`` (the GNN trainer's node batches) is not ported yet.
+``GraphBatchPipeline`` (the GNN trainer's seed nodes) draws through
+``randint``, jax 0.9's ``_randint`` in the same uint32 arithmetic: a
+``split`` of the key, two sets of 32-bit words, and their combination
+modulo the span with wraparound.  Its seeds, and the neighbour sampler's
+draws (``graphs/sampler.py``), equal the reference's bitwise.
 """
 
 from __future__ import annotations
@@ -62,15 +66,44 @@ def fold_in(key: tuple, data: int) -> tuple:
     return int(y0[0]), int(y1[0])
 
 
-def uniform(key: tuple, shape) -> np.ndarray:
-    """``jax.random.uniform(key, shape)`` in f32 on [0, 1), bitwise."""
+def split(key: tuple, num: int = 2) -> list:
+    """``jax.random.split(key, num)``: key ``i`` is the key's hash of the
+    counter pair (0, i)."""
+    y0, y1 = threefry2x32(*key, np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32))
+    return [(int(a), int(b)) for a, b in zip(y0, y1)]
+
+
+def random_bits(key: tuple, shape) -> np.ndarray:
+    """32 random bits an element (``jax.random.bits``): the hash of each
+    element's 64-bit flat index as (hi, lo), the two words xor'ed."""
     n = int(np.prod(shape))
     idx = np.arange(n, dtype=np.uint64)
     hi = (idx >> np.uint64(32)).astype(np.uint32)
     lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     b1, b2 = threefry2x32(*key, hi, lo)
-    bits = (b1 ^ b2) >> np.uint32(9) | np.uint32(0x3F800000)
-    return (bits.view(np.float32) - np.float32(1.0)).reshape(shape)
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform(key: tuple, shape) -> np.ndarray:
+    """``jax.random.uniform(key, shape)`` in f32 on [0, 1), bitwise."""
+    bits = random_bits(key, shape) >> np.uint32(9) | np.uint32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+def randint(key: tuple, shape, lo: int, hi: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, lo, hi)`` (int32), bitwise: the
+    key split in two, 32 bits an element from each half, combined as
+    ``(hi_bits % span · (2**32 % span) + lo_bits % span) % span`` in
+    uint32 arithmetic that wraps, then offset by ``lo``.  ``lo`` and
+    ``hi`` lie in int32; ``hi <= lo`` gives ``lo``."""
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32((hi - lo) & 0xFFFFFFFF) if hi > lo else np.uint32(1)
+    with np.errstate(over="ignore"):
+        mult = np.uint32(2 ** 16) % span
+        mult = (mult * mult) % span
+        off = ((higher % span) * mult + lower % span) % span
+    return (np.int64(lo) + off.astype(np.int64)).astype(np.int32)
 
 
 def _fma(a, b, c):
@@ -126,3 +159,20 @@ class TokenPipeline:
         shape = (self.global_batch, self.seq_len)
         return {k: torch.empty(shape, dtype=torch.int32, device="meta")
                 for k in ("tokens", "labels")}
+
+
+@dataclasses.dataclass
+class GraphBatchPipeline:
+    """Seeded mini-batches of node ids for sampled GNN training."""
+
+    n_nodes: int
+    batch_nodes: int
+    seed: int = 0
+
+    def batch(self, step: int) -> torch.Tensor:
+        """The (batch_nodes,) int32 seed nodes of ``step``, on the host."""
+        key = fold_in(prng_key(self.seed), step)
+        return torch.from_numpy(randint(key, (self.batch_nodes,), 0, self.n_nodes))
+
+    def specs(self) -> torch.Tensor:
+        return torch.empty((self.batch_nodes,), dtype=torch.int32, device="meta")

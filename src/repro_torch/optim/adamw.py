@@ -37,15 +37,21 @@ class AdamWState:
 
 
 def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists (and the same
+    leaves of ``rest``)."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, *xs) for xs in zip(tree, *rest)]
     return fn(tree, *rest)
 
 
 def _leaves(tree):
-    """Leaves in the reference's order (dict keys sorted)."""
+    """Leaves in the reference's order (dict keys sorted, lists in order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
     return [tree]
 
 

@@ -115,3 +115,33 @@ def test_entry_points_need_a_card_unless_asked():
         with pytest.raises(RuntimeError, match="CUDA"):
             restore_resharded({"w": torch.ones(2)}, d)
         assert restore_resharded({"w": torch.ones(2)}, d, "cpu")[0]["w"].device.type == "cpu"
+
+    # the GNN stack: the step on a molecule batch, the models' and MLPs'
+    # inits, carried parameters, the host batch builder; the sampler and
+    # the seed pipeline take no device: the sampler runs on its CSR's
+    # device and the pipeline's seeds are host tensors
+    from repro_torch.configs import gcn_cora, gnn_common, mace
+    from repro_torch.data import GraphBatchPipeline
+    from repro_torch.graphs.sampler import sample_blocks
+    from repro_torch.models.gnn import common as gnn, gcn
+    from repro_torch.models.gnn import mace as mace_model
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gnn_common.gnn_smoke(gcn, gcn_cora.SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gcn.init(torch.Generator().manual_seed(0), gcn_cora.SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mace_model.init(torch.Generator().manual_seed(0), mace.SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gnn.mlp_init(torch.Generator().manual_seed(0), [2, 3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gnn.params_from_numpy({"w": np.ones(2)})
+    mol = (np.zeros((1, 2, 3)), np.zeros((1, 2, 3)), np.zeros((1, 1), int), np.zeros((1, 1), int),
+           np.zeros(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gnn.flatten_molecules(*mol)
+    assert gnn.flatten_molecules(*mol, device="cpu").src.device.type == "cpu"
+    assert gnn_common.gnn_smoke(gcn, gcn_cora.SMOKE, device="cpu")["finite"]
+    seeds = GraphBatchPipeline(3, 4).batch(0)
+    assert seeds.device.type == "cpu"
+    assert sample_blocks(g, seeds, (0, 1), (2,)).layers[0].device.type == "cpu"
