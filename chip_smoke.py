@@ -280,7 +280,34 @@ non-zero exit before its last line:
    card alone: 5 steps, finite losses, step ms against the step's byte
    bound, ``max_memory_allocated``, step 2 under ``torch.profiler`` (its ten
    largest device ops); one JSON line ``{"gnn_train": {...}}`` before the
-   kernels line.
+   kernels line;
+16. MIND and the dry run (``models/recsys/mind.py``, ``configs/mind.py``,
+   ``launch/dryrun.py``; no hand-written kernel on the path, as the
+   reference's MIND gathers its table with a plain ``embed[ids]``: the
+   launch counts must not move): 16a ``mind_smoke`` on the card, then
+   ``SMOKE`` from weights carried from a CPU init, 5 AdamW steps card
+   against CPU (losses within 1e-5 relative, gradient norms within 1e-4,
+   parameters within rtol 1e-5 plus 2·lr a step), then ``serve_scores``
+   and ``retrieval`` of the card's trained weights on both (scores within
+   1e-5 of the row's largest |score|; top-k positions equal, or the two
+   scores within that of each other: such places are printed) on a slate
+   with repeated candidates; 16b ``FULL`` on the card (2^23 x 64 f32 table):
+   ``serve_p99`` (512 x 50, slate 8,192) card against CPU in full,
+   ``serve_bulk`` (262,144, slate 8,192) on the card with 1,024 seeded
+   rows re-scored on the CPU, ``retrieval_cand`` (1 x 1,000,000 padded to
+   1,000,448, top 100: the registry cell's step) card against CPU, each
+   with its median ms of 5 after a warm-up, the warm-up's peak memory and
+   its bound (this run's distinct table rows, ids and output over 3.35
+   TB/s against its matrix products' FLOPs, counted on meta tensors, over
+   67 TFLOP/s); 16c the train step card against CPU for 3 steps at B =
+   4,096 from the full-width table, then 5 steps at ``MIND_TRAIN_BATCH``
+   = 32,768 (``train_batch``'s 65,536 halved: its step runs out of memory):
+   median step ms after the first, peak memory and the bound (parameters
+   and AdamW state read and written once against the step's FLOPs); 16d
+   ``launch/dryrun.run_cell`` for mind's four cells and h2o-danube-3-4b x
+   train_4k, then the meta account of the step 14c times (danube FULL, 1 x
+   4,096 tokens, remat): its FLOPs beside 6·N·tokens and 14c's measured
+   step ms; one JSON line ``{"mind": {...}}`` before the kernels line.
 
 Agreement: labels, alive masks, core numbers and triangle counts bitwise;
 pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
@@ -333,6 +360,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -4261,6 +4289,339 @@ def gnn_phase(torch, np, kern, G, C, O, data, S, archs, card):
     return row
 
 
+# ---- phase 16: MIND and the dry run's account on meta tensors ---------------
+
+MIND_SMALL_STEPS = 5           # 16a: SMOKE, card against CPU
+MIND_SMALL_BATCH = 32
+MIND_SMALL_K = 20              # 16a: top k of a 72-candidate slate (16 repeated)
+MIND_SCORE_TOL = 1e-5          # scores: of the row's largest |score|
+MIND_PAD_SHARE = 0.1           # history slots that hold pad_id
+MIND_REPS = 5                  # 16b: timed calls after one warm-up (median)
+MIND_BULK_CHECK_ROWS = 1024    # 16b: serve_bulk rows re-scored on the CPU
+MIND_CHECK_BATCH, MIND_CHECK_STEPS = 4096, 3   # 16c: card against CPU, full table
+MIND_TRAIN_STEPS = 5           # 16c: steps at MIND_TRAIN_BATCH
+# 16c: train_batch's B = 65,536 halved: a step at 65,536 asks for a further
+# 16 GiB with 67.6 GiB allocated and runs out of the card's 80 GB
+MIND_TRAIN_BATCH = 32_768
+
+
+def mind_batch(torch, np, cfg, B, seed):
+    """B histories (a MIND_PAD_SHARE of their slots pad_id) and targets
+    from numpy seed ``seed``, as host int32 tensors."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(1, cfg.n_items, (B, cfg.hist_len), dtype=np.int32)
+    hist[rng.random(hist.shape) < MIND_PAD_SHARE] = cfg.pad_id
+    target = rng.integers(1, cfg.n_items, B, dtype=np.int32)
+    return {"hist": torch.from_numpy(hist), "target": torch.from_numpy(target)}
+
+
+def scores_agree(label, got, want):
+    """Card scores against CPU scores: each within MIND_SCORE_TOL of its
+    row's largest |score| (finite columns only).  Returns the worst."""
+    got = got.cpu()
+    scale = want.abs().amax(dim=1, keepdim=True)
+    worst = float(((got - want).abs() / scale).max())
+    check(worst <= MIND_SCORE_TOL, f"{label}: scores differ by {worst} of the row's largest "
+                                   f"|score| (limit {MIND_SCORE_TOL})")
+    return worst
+
+
+def topk_agree(torch, label, got_idx, want_idx, want_scores):
+    """Top-k slate positions, card against CPU: equal, or where they differ
+    the CPU's scores of the two positions within MIND_SCORE_TOL of the
+    row's largest |score| (a near tie).  Such places are printed and
+    returned."""
+    got_idx = got_idx.cpu()
+    finite = torch.where(torch.isfinite(want_scores), want_scores, 0.0)
+    scale = finite.abs().amax(dim=1)
+    places = []
+    for r, j in torch.nonzero(got_idx != want_idx).tolist():
+        a, b = int(got_idx[r, j]), int(want_idx[r, j])
+        gap = float((want_scores[r, a] - want_scores[r, b]).abs() / scale[r])
+        places.append(dict(row=r, rank=j, card=a, cpu=b, gap=gap))
+        check(gap <= MIND_SCORE_TOL, f"{label}: rank {j} of row {r}: card position {a}, cpu {b}, "
+                                     f"scores {gap} of the row's largest apart")
+    if places:
+        print(f"{label}: top-k positions differ at {len(places)} near-tied places: "
+              f"{json.dumps(places[:10])}", flush=True)
+    return places
+
+
+def mind_small(torch, np, G, C, O, M, MC):
+    """16a: mind_smoke on the card; SMOKE from a CPU init trained
+    MIND_SMALL_STEPS steps on both devices; then the card's trained
+    weights scored and retrieved on both."""
+    cfg = MC.SMOKE
+    smoke = MC.mind_smoke()
+    check(smoke["finite"], f"16a: mind_smoke is not finite: {smoke}")
+    params = M.init(torch.Generator().manual_seed(161), cfg, device="cpu")
+    batch = mind_batch(torch, np, cfg, MIND_SMALL_BATCH, 162)
+    step = MC.make_train_step(cfg)
+    runs = {}
+    for dev in (DEV, "cpu"):
+        p = {k: v.to(dev, copy=True) for k, v in params.items()}
+        runs[dev] = gnn_run(torch, G, O, step, p, [{k: v.to(dev) for k, v in batch.items()}],
+                            MIND_SMALL_STEPS)
+    row = gnn_agree(torch, C, "16a mind-smoke", runs, MIND_SMALL_STEPS)
+    trained = runs[DEV][2]
+    base = torch.from_numpy(np.random.default_rng(163).integers(0, cfg.n_items, 56,
+                                                                 dtype=np.int32))
+    slate = torch.cat([base, base[:16]])
+    out = {}
+    for dev in (DEV, "cpu"):
+        p = {k: v.to(dev) for k, v in trained.items()}
+        hist, s = batch["hist"].to(dev), slate.to(dev)
+        scores = M.serve_scores(p, cfg, hist, s)
+        _, ids = M.retrieval(p, cfg, hist, s, top_k=MIND_SMALL_K)
+        _, idx = M.top_k_stable(scores, MIND_SMALL_K)
+        check(torch.equal(ids, s[idx]), f"16a: retrieval's ids on {dev} are not the top slate's")
+        out[dev] = (scores, idx)
+    row["score_err"] = scores_agree("16a serve_scores", out[DEV][0], out["cpu"][0])
+    row["topk_near_ties"] = topk_agree(torch, "16a retrieval", out[DEV][1], out["cpu"][1],
+                                       out["cpu"][0])
+    row["mind_smoke"] = smoke
+    print(f"16a mind-smoke: mind_smoke {smoke}; {MIND_SMALL_STEPS} steps, card losses "
+          f"{row['losses']} == cpu within {row['loss_rel_err']} (limit {GNN_RTOL}); gradient "
+          f"norms within {row['norm_rel_err']}; parameters within rtol {GNN_RTOL} + "
+          f"{row['param_excess']} (atol {row['atol']}); scores within {row['score_err']} of "
+          f"the row's largest (limit {MIND_SCORE_TOL}); top {MIND_SMALL_K} positions equal but "
+          f"{len(row['topk_near_ties'])} near ties", flush=True)
+    return row
+
+
+def meta_like(torch, tree):
+    return {k: torch.empty_like(v, device="meta") for k, v in tree.items()}
+
+
+def timed_calls(torch, fn, reps=MIND_REPS):
+    """(warm-up call's output, median ms of ``reps`` timed calls (host
+    clock to synchronize), every timed ms, the warm-up's peak bytes above
+    what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(walls)[reps // 2], walls, peak
+
+
+def serve_bound(torch, dryrun, M, cfg, params, hist, slate, out_bytes, fn):
+    """(bound ms, by, bytes, FLOPs) of one scoring call: the distinct table
+    rows it gathers, the other parameters, the ids and the output once
+    over the memory rate, against its matrix products' FLOPs (counted on
+    meta tensors of the same shapes) over the f32 rate."""
+    rows = torch.unique(torch.cat([hist.reshape(-1), slate])).numel()
+    d = cfg.embed_dim
+    small = sum(v.numel() * 4 for k, v in params.items() if k != "embed")
+    nbytes = rows * d * 4 + small + (hist.numel() + slate.numel()) * 4 + out_bytes
+    flops = dryrun.account(fn, (meta_like(torch, params), torch.empty_like(hist, device="meta"),
+                                torch.empty_like(slate, device="meta")))[0]
+    t, by = bound_ms(nbytes, flops)
+    return t, by, nbytes, flops
+
+
+def mind_full(torch, np, M, MC, dryrun, card):
+    """16b: FULL on the card: serve_p99 card against CPU, serve_bulk with
+    MIND_BULK_CHECK_ROWS rows re-scored on the CPU, retrieval_cand card
+    against CPU.  Returns (rows, card params, host copy)."""
+    cfg = MC.FULL
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init(torch.Generator(device=DEV).manual_seed(164), cfg, device=DEV)
+    host = {k: v.cpu() for k, v in params.items()}
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(165)
+    rows = {}
+    for shape, seed in (("serve_p99", 166), ("serve_bulk", 167)):
+        B, C = MC.SHAPES[shape]["batch"], MC.SHAPES[shape]["slate"]
+        hist = mind_batch(torch, np, cfg, B, seed)["hist"]
+        slate = torch.from_numpy(rng.integers(0, cfg.n_items, C, dtype=np.int32))
+        hist_d, slate_d = hist.to(DEV), slate.to(DEV)
+
+        def fn(p=params, h=hist_d, c=slate_d):
+            return M.serve_scores(p, cfg, h, c)
+
+        scores, ms, walls, peak = timed_calls(torch, fn)
+        if shape == "serve_p99":
+            checked = B
+            err = scores_agree(f"16b {shape}", scores, M.serve_scores(host, cfg, hist, slate))
+        else:
+            sel = torch.from_numpy(np.sort(rng.choice(B, MIND_BULK_CHECK_ROWS, replace=False)))
+            checked = MIND_BULK_CHECK_ROWS
+            err = scores_agree(f"16b {shape}", scores[sel.to(DEV)],
+                               M.serve_scores(host, cfg, hist[sel], slate))
+        check(bool(torch.isfinite(scores).all()), f"16b {shape}: non-finite scores")
+        t, by, nbytes, flops = serve_bound(
+            torch, dryrun, M, cfg, params, hist_d, slate_d, scores.numel() * 4,
+            lambda p, h, c: M.serve_scores(p, cfg, h, c))
+        rows[shape] = dict(batch=B, slate=C, ms=ms, walls=walls, peak_bytes=peak,
+                           rows_checked=checked, score_err=err, bound_ms=t, bound_by=by,
+                           bound_bytes=nbytes, flops=flops, bound_share=t / ms)
+        print(f"16b mind {shape} (B {B}, slate {C}) on {card}: {ms} ms (median of "
+              f"{MIND_REPS}: {walls}); peak {peak} B above the held; bound {t} ms by {by} "
+              f"({nbytes} B, {flops} FLOP); {t / ms} of it; {checked} rows against the CPU "
+              f"within {err} of the row's largest", flush=True)
+        del scores, hist_d, slate_d, fn
+        torch.cuda.empty_cache()
+
+    # retrieval_cand: the registry cell's step on a slate padded to SHARD_PAD
+    info = MC.SHAPES["retrieval_cand"]
+    NC = info["n_cands"]
+    NC_pad = (NC + MC.SHARD_PAD - 1) // MC.SHARD_PAD * MC.SHARD_PAD
+    hist = mind_batch(torch, np, cfg, info["batch"], 168)["hist"]
+    slate = torch.zeros(NC_pad, dtype=torch.int32)
+    slate[:NC] = torch.from_numpy(rng.integers(0, cfg.n_items, NC, dtype=np.int32))
+    hist_d, slate_d = hist.to(DEV), slate.to(DEV)
+    step = MC.retrieval_fn(cfg, NC)
+    (vals, ids), ms, walls, peak = timed_calls(torch, lambda: step(params, hist_d, slate_d))
+    idx = {}
+    masked = {}
+    for dev, p, h, c in ((DEV, params, hist_d, slate_d), ("cpu", host, hist, slate)):
+        sc = M.serve_scores(p, cfg, h, c)
+        masked[dev] = torch.where(torch.arange(NC_pad, device=sc.device)[None] < NC, sc,
+                                  float("-inf"))
+        idx[dev] = M.top_k_stable(masked[dev], MC.RETRIEVAL_K)[1]
+    check(torch.equal(ids, slate_d[idx[DEV]]), "16b retrieval_cand: ids are not the top slate's")
+    host_vals, host_ids = step(host, hist, slate)
+    err = scores_agree("16b retrieval_cand", masked[DEV][:, :NC], masked["cpu"][:, :NC])
+    ties = topk_agree(torch, "16b retrieval_cand", idx[DEV], idx["cpu"], masked["cpu"])
+    same_ids = bool(torch.equal(ids.cpu(), host_ids))
+    check(same_ids or ties, "16b retrieval_cand: ids differ from the CPU's without a near tie")
+    t, by, nbytes, flops = serve_bound(
+        torch, dryrun, M, cfg, params, hist_d, slate_d[:NC], 2 * MC.RETRIEVAL_K * 4,
+        lambda p, h, c: M.serve_scores(p, cfg, h, c))
+    rows["retrieval_cand"] = dict(n_cands=NC, padded=NC_pad, k=MC.RETRIEVAL_K, ms=ms,
+                                  walls=walls, peak_bytes=peak, ids_equal=same_ids,
+                                  near_ties=ties, score_err=err, bound_ms=t, bound_by=by,
+                                  bound_bytes=nbytes, flops=flops, bound_share=t / ms)
+    print(f"16b mind retrieval_cand (1 x {NC} padded to {NC_pad}, top {MC.RETRIEVAL_K}) on "
+          f"{card}: {ms} ms (median of {MIND_REPS}: {walls}); peak {peak} B; bound {t} ms by "
+          f"{by}; ids == cpu {same_ids} ({len(ties)} near ties); scores within {err}",
+          flush=True)
+    del vals, ids, idx, masked, hist_d, slate_d
+    torch.cuda.empty_cache()
+    rows["init_s"] = t_init
+    return rows, params, host
+
+
+def mind_step_walls(torch, O, step, params, batch, steps):
+    """``steps`` steps from fresh AdamW state on the card: (losses, step
+    ms), the host clock to synchronize around each."""
+    opt = O.adamw_init(params)
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return losses, walls
+
+
+def mind_train(torch, np, G, C, O, M, MC, dryrun, params, host, card):
+    """16c: MIND_CHECK_STEPS steps at MIND_CHECK_BATCH card against CPU
+    from copies of the full table, then MIND_TRAIN_STEPS steps at
+    MIND_TRAIN_BATCH on the card."""
+    cfg = MC.FULL
+    step = MC.make_train_step(cfg)
+    batch = mind_batch(torch, np, cfg, MIND_CHECK_BATCH, 169)
+    runs = {}
+    for dev, src in ((DEV, params), ("cpu", host)):
+        p = {k: v.clone() for k, v in src.items()}
+        runs[dev] = gnn_run(torch, G, O, step, p, [{k: v.to(dev) for k, v in batch.items()}],
+                            MIND_CHECK_STEPS)
+    check_row = gnn_agree(torch, C, f"16c mind B={MIND_CHECK_BATCH}", runs, MIND_CHECK_STEPS)
+    print(f"16c mind B={MIND_CHECK_BATCH}, full table: {MIND_CHECK_STEPS} steps, card losses "
+          f"{check_row['losses']} == cpu within {check_row['loss_rel_err']}; gradient norms "
+          f"within {check_row['norm_rel_err']}; parameters within rtol {GNN_RTOL} + "
+          f"{check_row['param_excess']} (atol {check_row['atol']}); card step ms "
+          f"{check_row['step_ms']}, cpu {check_row['cpu_step_ms']}", flush=True)
+    del runs, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B = MIND_TRAIN_BATCH
+    batch = {k: v.to(DEV) for k, v in mind_batch(torch, np, cfg, B, 170).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, walls = mind_step_walls(torch, O, step, params, batch, MIND_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)), f"16c: a loss is not finite: {losses}")
+    med = median_after_first(walls)
+    state = sum(v.numel() * 4 for v in params.values())
+    nbytes = 2 * 3 * state + sum(v.numel() * 4 for v in batch.values()) + 4
+    mparams = meta_like(torch, params)
+    flops = dryrun.account(step, (mparams, O.adamw_init(mparams), meta_like(torch, batch)))[0]
+    t, by = bound_ms(nbytes, flops)
+    row = dict(check=check_row, batch=B, steps=MIND_TRAIN_STEPS, losses=losses,
+               step_ms=walls, step_ms_median=med, held_bytes=held, peak_bytes=peak,
+               bound_ms=t, bound_by=by, bound_bytes=nbytes, flops=flops, bound_share=t / med)
+    print(f"16c mind train_batch B = {B} (of {MC.SHAPES['train_batch']['batch']}) on {card}: "
+          f"losses {losses}; step ms {walls} (median after the first {med}); peak {peak} B "
+          f"({held} held before); bound {t} ms by {by} ({nbytes} B, {flops} FLOP); {t / med} "
+          f"of it", flush=True)
+    return row
+
+
+def account_phase(torch, dryrun, LC, T, O, mind_shapes, dn_full, full_row):
+    """16d: the dry run's records for mind's four cells and danube's
+    train_4k, then the meta account of 14c's exact step."""
+    rows = {}
+    for arch, shape in [("mind", s) for s in mind_shapes] + [("h2o-danube-3-4b", "train_4k")]:
+        rec = dryrun.run_cell(arch, shape, False, save=False)
+        rows[f"{arch}/{shape}"] = dict(totals=rec["totals"], per_device=rec["per_device"],
+                                       roofline=rec["roofline"], account_s=rec["account_s"])
+    cfg = dn_full
+    params = LC.param_abstract(cfg)
+    batch = {k: torch.empty((TRAIN_FULL_BATCH, TRAIN_FULL_SEQ), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    step = T.make_train_step(cfg, lr_peak=TRAIN_LR_PEAK, total_steps=TRAIN_FULL_STEPS)
+    t0 = time.perf_counter()
+    flops, nbytes, ops, _ = dryrun.account(step, (params, O.adamw_init(params), batch))
+    t_acc = time.perf_counter() - t0
+    tokens = TRAIN_FULL_BATCH * TRAIN_FULL_SEQ
+    six_n = 6 * (cfg.param_count - cfg.vocab_size * cfg.d_model) * tokens
+    step_ms = full_row["step_ms_median"] if full_row else None
+    row = dict(flops=flops, bytes=nbytes, aten_ops=ops, six_n_tokens=six_n,
+               ratio=flops / six_n, step_ms=step_ms, account_s=t_acc,
+               tflops_per_s=flops / (step_ms / 1e3) / 1e12 if step_ms else None)
+    rows["14c_step"] = row
+    print(f"16d the step 14c times (danube FULL, {TRAIN_FULL_BATCH} x {TRAIN_FULL_SEQ} tokens, "
+          f"remat {cfg.remat}) on meta tensors: {flops} FLOP (6·N·tokens {six_n}; ratio "
+          f"{row['ratio']}), {nbytes} B unfused, {ops} aten ops, in {t_acc} s; 14c's measured "
+          f"step {step_ms} ms -> {row['tflops_per_s']} TFLOP/s counted", flush=True)
+    return rows
+
+
+def mind_phase(torch, np, kern, G, C, O, M, MC, dryrun, LC, T, dn_full, full_row, card):
+    """16: MIND on the card and the dry run's account on meta tensors.  Its
+    path runs no hand-written kernel: the launch counts must not move."""
+    t0 = time.perf_counter()
+    before = kern.launch_counts()
+    small = mind_small(torch, np, G, C, O, M, MC)
+    serve, params, host = mind_full(torch, np, M, MC, dryrun, card)
+    train = mind_train(torch, np, G, C, O, M, MC, dryrun, params, host, card)
+    del params, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    account = account_phase(torch, dryrun, LC, T, O, tuple(MC.SHAPES), dn_full, full_row)
+    check(kern.launch_counts() == before, "16: MIND or the dry run launched a kernel")
+    row = {"small": small, "serve": serve, "train": train, "account": account,
+           "seconds": time.perf_counter() - t0, "card": card}
+    print(f"16: {row['seconds']} s on {card}", flush=True)
+    print(json.dumps({"mind": row}), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--communities", type=int, default=512,
@@ -4323,6 +4684,10 @@ def main() -> int:
     from repro_torch.graphs import sampler as gnn_sampler
     from repro_torch.models.gnn import common as gnn_c
     from repro_torch.models.gnn import egnn, gcn, mace, nequip
+    from repro_torch.configs import lm_common
+    from repro_torch.configs import mind as mind_cfg
+    from repro_torch.launch import dryrun
+    from repro_torch.models.recsys import mind as mind_model
     algos = (bfs, sssp, cc, pagerank)
     suite = (kcore, bc, tri)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4588,9 +4953,9 @@ def main() -> int:
 
     # 14. the LM trainer: small configs card against CPU and a resume, danube
     # at full width cut to 2 layers card against CPU, danube FULL
-    train_phase(torch, np, kern, transformer, layers, lm_optim, lm_train_mod, lm_data,
-                (lm_train_mod.tiny_model(512), lm_danube.SMOKE, lm_deepseek.SMOKE),
-                lm_danube.FULL, card)
+    lm_train = train_phase(torch, np, kern, transformer, layers, lm_optim, lm_train_mod,
+                           lm_data, (lm_train_mod.tiny_model(512), lm_danube.SMOKE,
+                                     lm_deepseek.SMOKE), lm_danube.FULL, card)
     torch.cuda.empty_cache()
 
     # 15. the GNN trainer: SMOKE configs card against CPU, BASE widths on the
@@ -4598,6 +4963,12 @@ def main() -> int:
     # ogb_products at full scale
     gnn_phase(torch, np, kern, gnn_common, gnn_c, lm_optim, lm_data, gnn_sampler,
               ((gcn, gnn_gcn), (egnn, gnn_egnn), (nequip, gnn_nequip), (mace, gnn_mace)), card)
+    torch.cuda.empty_cache()
+
+    # 16. MIND at full width (serve_p99, serve_bulk, retrieval_cand, train_batch)
+    # and the dry run's account of mind's cells, danube's train_4k and 14c's step
+    mind_phase(torch, np, kern, gnn_common, gnn_c, lm_optim, mind_model, mind_cfg, dryrun,
+               lm_common, transformer, lm_danube.FULL, lm_train["full"], card)
 
     # every path's cuda launches: the three graph paths count graph_ops only
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,

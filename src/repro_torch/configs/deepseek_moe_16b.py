@@ -5,6 +5,8 @@ MoE-everywhere; noted in DESIGN.md §Arch-applicability.)"""
 
 from ..models.layers import MoEConfig
 from ..models.transformer import LMConfig
+from .registry import ArchSpec, register, LM_SHAPES
+from .lm_common import build_lm_cell, lm_smoke
 
 FULL = LMConfig(
     name="deepseek-moe-16b",
@@ -32,3 +34,12 @@ SMOKE = LMConfig(
     moe=MoEConfig(n_experts=8, top_k=3, d_expert=64, n_shared=2, d_shared=64),
     dtype="float32",
 )
+
+register(ArchSpec(
+    arch_id="deepseek-moe-16b",
+    family="lm",
+    shapes=LM_SHAPES,
+    build_cell=lambda shape, **opts: build_lm_cell(FULL, shape, **opts),
+    smoke_step=lambda device=None: lm_smoke(SMOKE, device),
+    description=__doc__,
+))

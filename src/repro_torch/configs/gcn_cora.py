@@ -4,6 +4,8 @@
 import dataclasses
 
 from ..models.gnn import gcn
+from .registry import ArchSpec, register, GNN_SHAPES
+from .gnn_common import build_gnn_cell, gnn_smoke
 
 BASE = gcn.GCNConfig(name="gcn-cora", n_layers=2, d_hidden=16)
 
@@ -20,3 +22,12 @@ def cfg_for_shape(shape, info):
 
 SMOKE = dataclasses.replace(BASE, d_feat=8, n_classes=4, task="graph_reg",
                             d_hidden=8)
+
+register(ArchSpec(
+    arch_id="gcn-cora",
+    family="gnn",
+    shapes=GNN_SHAPES,
+    build_cell=lambda shape, **opts: build_gnn_cell("gcn-cora", shape, gcn, cfg_for_shape, **opts),
+    smoke_step=lambda device=None: gnn_smoke(gcn, SMOKE, device),
+    description=__doc__,
+))

@@ -11,9 +11,10 @@ Shapes (the reference's table):
 Node and edge arrays are padded to ``SHARD_MULT`` (the reference's mesh
 multiple) with masked-out padding.  ``build_gnn_step`` gives the
 reference cell's positional step for each kind with its arguments'
-shapes and dtypes as meta tensors.  The reference's PartitionSpecs and
-``DryrunCell`` wait for the registry and dry-run port (ROADMAP queue 1,
-items 13.4 and 13.5): on one device they would place nothing.
+shapes and dtypes as meta tensors; ``build_gnn_cell`` wraps it in the
+reference's ``DryrunCell`` with its ``P`` specs (parameters replicated,
+node and edge arrays over every mesh axis or, with ``placement="2d"``,
+the CVC-style layout), which place nothing on one device.
 """
 
 from __future__ import annotations
@@ -22,9 +23,14 @@ import numpy as np
 import torch
 
 from ..core.graph import _device
+from ..distributed.mesh_utils import P
 from ..graphs.sampler import sample_blocks_raw
 from ..models.gnn import common as C
-from ..optim.adamw import adamw_init, adamw_update
+from ..optim.adamw import AdamWState, adamw_init, adamw_update
+from .registry import DryrunCell
+
+VERTEX = ("pod", "data", "model")   # flatten-all sharding for node/edge arrays
+BATCH = ("pod", "data")
 
 SHARD_MULT = 512
 
@@ -131,6 +137,40 @@ def build_gnn_step(model_mod, cfg, kind: str, info: dict):
     else:
         raise ValueError(f"unknown GNN cell kind {kind!r}")
     return fn, head + specs
+
+
+def build_gnn_cell(arch_id: str, shape: str, model_mod, cfg_for_shape,
+                   placement: str = "flat", **_opts) -> DryrunCell:
+    """The reference's cell for ``shape``.  placement (full-graph shapes):
+      'flat' — nodes/edges sharded over every mesh axis (default);
+      '2d'   — nodes over ('pod','data') × features over 'model' (the
+               feature dim padded to a multiple of 16)."""
+    info = GNN_SHAPE_TABLE[shape]
+    kind = info["kind"]
+    if placement == "2d" and kind == "full":
+        info = dict(info, d_feat=_ru(info["d_feat"], 16))
+    cfg = cfg_for_shape(shape, info)
+    fn, arg_specs = build_gnn_step(model_mod, cfg, kind, info)
+    pspecs = C.tree_map(lambda _: P(), arg_specs[0])
+    ospecs = AdamWState(step=P(), mu=pspecs, nu=pspecs)
+    head = (pspecs, ospecs)
+    if kind == "full" and placement == "flat":
+        data = (P(VERTEX, None), P(VERTEX, None)) + (P(VERTEX),) * 5
+    elif kind == "full":
+        # CVC-style: edges over the data axes × features over model;
+        # node-width arrays replicated (they are tiny next to edges)
+        data = (P(None, "model"), P(), P(BATCH), P(BATCH), P(), P(), P(BATCH))
+    elif kind == "sampled":
+        data = (P(VERTEX), P(VERTEX), P(VERTEX), P(VERTEX, None), P(VERTEX), P(BATCH), P())
+    else:  # molecule: batched small graphs, block-diagonal flatten
+        data = (P(BATCH, None, None), P(BATCH, None, None), P(BATCH, None), P(BATCH, None),
+                P(BATCH))
+    return DryrunCell(
+        arch=arch_id, shape=shape, kind="train",
+        fn=fn, arg_specs=arg_specs, in_specs=head + data,
+        out_specs=(pspecs, ospecs, {"loss": P()}),
+        donate=(0, 1),
+    )
 
 
 def smoke_batch(d_feat: int, device=None) -> C.GNNBatch:

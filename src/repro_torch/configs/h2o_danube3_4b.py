@@ -3,6 +3,8 @@ vocab=32000, llama+mistral mix with sliding-window attention.
 [arXiv:2401.16818; unverified]"""
 
 from ..models.transformer import LMConfig
+from .registry import ArchSpec, register, LM_SHAPES
+from .lm_common import build_lm_cell, lm_smoke
 
 FULL = LMConfig(
     name="h2o-danube-3-4b",
@@ -29,3 +31,12 @@ SMOKE = LMConfig(
     sliding_window=8,
     dtype="float32",
 )
+
+register(ArchSpec(
+    arch_id="h2o-danube-3-4b",
+    family="lm",
+    shapes=LM_SHAPES,
+    build_cell=lambda shape, **opts: build_lm_cell(FULL, shape, **opts),
+    smoke_step=lambda device=None: lm_smoke(SMOKE, device),
+    description=__doc__,
+))

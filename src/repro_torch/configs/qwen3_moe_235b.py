@@ -4,6 +4,8 @@ d_ff(expert)=1536 vocab=151936, MoE 128 experts top-8, qk-norm.
 
 from ..models.layers import MoEConfig
 from ..models.transformer import LMConfig
+from .registry import ArchSpec, register, LM_SHAPES
+from .lm_common import build_lm_cell, lm_smoke
 
 FULL = LMConfig(
     name="qwen3-moe-235b-a22b",
@@ -33,3 +35,12 @@ SMOKE = LMConfig(
     qk_norm=True,
     dtype="float32",
 )
+
+register(ArchSpec(
+    arch_id="qwen3-moe-235b-a22b",
+    family="lm",
+    shapes=LM_SHAPES,
+    build_cell=lambda shape, **opts: build_lm_cell(FULL, shape, **opts),
+    smoke_step=lambda device=None: lm_smoke(SMOKE, device),
+    description=__doc__,
+))

@@ -2,6 +2,8 @@
 vocab=50304.  [hf:stabilityai/stablelm family; unverified]"""
 
 from ..models.transformer import LMConfig
+from .registry import ArchSpec, register, LM_SHAPES
+from .lm_common import build_lm_cell, lm_smoke
 
 FULL = LMConfig(
     name="stablelm-3b",
@@ -26,3 +28,12 @@ SMOKE = LMConfig(
     vocab_size=512,
     dtype="float32",
 )
+
+register(ArchSpec(
+    arch_id="stablelm-3b",
+    family="lm",
+    shapes=LM_SHAPES,
+    build_cell=lambda shape, **opts: build_lm_cell(FULL, shape, **opts),
+    smoke_step=lambda device=None: lm_smoke(SMOKE, device),
+    description=__doc__,
+))

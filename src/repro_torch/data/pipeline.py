@@ -106,6 +106,52 @@ def randint(key: tuple, shape, lo: int, hi: int) -> np.ndarray:
     return (np.int64(lo) + off.astype(np.int64)).astype(np.int32)
 
 
+# The same hash and draws in torch, on a key tensor's device: uint32 words
+# held in int64 and masked after every add and shift (torch's uint32 has
+# too few ops).  Shapes depend on nothing but the arguments, so a meta key
+# gives meta draws (the dry run's sampled cells).
+
+_M32 = 0xFFFFFFFF
+
+
+def _threefry_t(k1, k2, x1, x2):
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = (((x[1] << r) | (x[1] >> (32 - r))) & _M32) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x[0], x[1]
+
+
+def split_t(key: torch.Tensor, num: int = 2) -> list:
+    """``split`` of a (2,) int64 key tensor of uint32 words: ``num`` such
+    keys on its device."""
+    ctr = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = _threefry_t(key[0], key[1], torch.zeros_like(ctr), ctr)
+    return list(torch.stack([y0, y1], dim=1))
+
+
+def random_bits_t(key: torch.Tensor, shape) -> torch.Tensor:
+    """``random_bits`` of a key tensor, as int64 words on its device."""
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=key.device)
+    b1, b2 = _threefry_t(key[0], key[1], idx >> 32, idx & _M32)
+    return (b1 ^ b2).reshape(shape)
+
+
+def randint_t(key: torch.Tensor, shape, lo: int, hi: int) -> torch.Tensor:
+    """``randint`` of a key tensor on its device (int32), bitwise."""
+    k1, k2 = split_t(key)
+    higher, lower = random_bits_t(k1, shape), random_bits_t(k2, shape)
+    span = (hi - lo) & _M32 if hi > lo else 1
+    mult = (2 ** 16) % span
+    mult = (mult * mult & _M32) % span
+    off = (((higher % span) * mult & _M32) + lower % span & _M32) % span
+    return (lo + off).to(torch.int32)
+
+
 def _fma(a, b, c):
     """f32 a·b + c rounded once: the product of two f32 values is exact in
     float64."""

@@ -14,9 +14,12 @@ Integrates:
   * ``TokenPipeline``: batches as a function of (seed, step), so a resumed
     run sees the batches the uninterrupted run saw.
 
-The trainer runs on one device (the card unless ``device="cpu"``).  The
-reference's mesh, its parameter shardings and its elastic restore over
-several cards wait for a mesh of distinct devices.
+The trainer runs on one device (the card unless ``device="cpu"``).  Its
+``mesh`` (the reference's default: 1 × 1 over ("data", "model")) names
+the axes that ``_shardings`` filters the reference's parameter, moment
+and batch specs to; on one device they place nothing.  An elastic
+restore over several cards waits for a mesh of distinct devices (ROADMAP
+queue 1, item 23).
 
 CLI:
     PYTHONPATH=src python -m repro_torch.launch.train --steps 20 --ckpt DIR
@@ -35,10 +38,12 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..core.graph import _device
 from ..data import TokenPipeline
+from ..core.mesh import Mesh
 from ..distributed.fault import ElasticPolicy, StragglerMonitor
+from ..distributed.mesh_utils import P, filter_pspec
 from ..models import transformer as T
 from ..models.layers import MoEConfig
-from ..optim import adamw_init, adamw_update, cosine_schedule
+from ..optim import AdamWState, adamw_init, adamw_update, cosine_schedule
 from ..optim.compression import compressed_gradient, compression_init
 
 
@@ -58,11 +63,14 @@ class TrainerConfig:
 class Trainer:
     """``params``: starting parameters (a tree like ``transformer.init``'s,
     on ``device``; trained in place) in place of the seeded init; a
-    snapshot in ``ckpt_dir`` still takes precedence."""
+    snapshot in ``ckpt_dir`` still takes precedence.  ``mesh``: the axes
+    the specs are filtered to (1 × 1 over ("data", "model") by default)."""
 
-    def __init__(self, cfg: TrainerConfig, device=None, params=None):
+    def __init__(self, cfg: TrainerConfig, device=None, params=None, mesh: Mesh = None):
         self.cfg = cfg
         self.device = _device(device)
+        self.mesh = mesh if mesh is not None else Mesh({"data": 1, "model": 1},
+                                                       device=self.device)
         self.monitor = StragglerMonitor()
         self.elastic = ElasticPolicy()
         self.pipeline = TokenPipeline(
@@ -71,6 +79,18 @@ class Trainer:
         )
         self.ckpt = CheckpointManager(cfg.ckpt_dir) if cfg.ckpt_dir else None
         self._build(params)
+
+    # -- sharding helpers ---------------------------------------------------
+    def _shardings(self):
+        """(param specs, AdamW state specs, batch specs) filtered to the
+        mesh's axes: the reference's ``NamedSharding`` trees' specs."""
+        param_sh = T.tree_map(self._filter, T.param_specs(self.cfg.model, fsdp=True))
+        opt_sh = AdamWState(step=P(), mu=param_sh, nu=param_sh)
+        batch_sh = {k: self._filter(P(("pod", "data"), None)) for k in ("tokens", "labels")}
+        return param_sh, opt_sh, batch_sh
+
+    def _filter(self, spec: P) -> P:
+        return filter_pspec(spec, self.mesh)
 
     # -- build / restore ----------------------------------------------------
     def _build(self, params):

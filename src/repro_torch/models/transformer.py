@@ -24,7 +24,12 @@ recomputed ops run again on the same inputs.  Every op on the path has a
 backward, the MoE dispatch's write into its trash row, the router's
 stable sort and the masked softmax included.
 
-The sharding rules (``param_specs``) are not ported yet.
+Sharding rules (``param_specs``, ``param_specs_serve``, ``cache_pspec``)
+are the reference's ``PartitionSpec`` trees as ``distributed.mesh_utils.
+P``: data axes ('pod', 'data') carry the batch and the FSDP parameter
+shards, the 'model' axis TP (heads, d_ff, vocab) and EP (experts).  On
+one device they place nothing; ``launch/dryrun.py`` accounts shards and
+traffic by them.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from . import layers as L
 from .layers import params_from_numpy  # noqa: F401  (a whole tree: nested dicts recurse)
 from ..core.graph import _device
+from ..distributed.mesh_utils import P
 from ..optim import adamw_update, cosine_schedule
 
 
@@ -293,6 +299,12 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None, device=None)
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def cache_specs(cfg: LMConfig, batch: int, max_seq: int):
+    """``init_cache``'s shapes and dtypes as meta tensors."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {k: torch.empty(shape, dtype=_dt(cfg.dtype), device="meta") for k in ("k", "v")}
+
+
 def decode_layers(params, cfg: LMConfig, cache, tokens, pos, slot_mask=None):
     """Every layer of one decode step, writing the cache in place; returns
     the residual stream (B, 1, D) before the final norm."""
@@ -325,3 +337,115 @@ def make_decode(cfg: LMConfig):
         return _unembed(params, cfg, x), cache
 
     return decode
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: LMConfig, fsdp: bool = True):
+    """P tree matching ``init``'s output.
+
+    TP ('model'): attention heads, d_ff, experts, vocab.
+    FSDP ('data'): the d_model dim of the big matrices (ZeRO-3 style).
+    """
+    dp = "data" if fsdp else None
+    attn = {
+        "wq": P(None, dp, "model"),
+        "wk": P(None, dp, None),       # kv heads too few to split — replicate
+        "wv": P(None, dp, None),
+        "wo": P(None, "model", dp),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = P(None, None)
+        attn["k_norm"] = P(None, None)
+    layer = {
+        "attn_norm": P(None, None),
+        "attn": attn,
+        "mlp_norm": P(None, None),
+    }
+    if cfg.moe:
+        moe = {
+            "router": P(None, dp, None),
+            "we_gate": P(None, "model", dp, None),
+            "we_up": P(None, "model", dp, None),
+            "we_down": P(None, "model", None, dp),
+        }
+        if cfg.moe.n_shared:
+            moe["shared"] = {
+                "wi_gate": P(None, dp, "model"),
+                "wi_up": P(None, dp, "model"),
+                "wo": P(None, "model", dp),
+            }
+        layer["moe"] = moe
+    else:
+        layer["mlp"] = {
+            "wi_gate": P(None, dp, "model"),
+            "wi_up": P(None, dp, "model"),
+            "wo": P(None, "model", dp),
+        }
+    specs = {
+        "embed": P("model", dp),
+        "layers": layer,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(dp, "model")
+    return specs
+
+
+def param_specs_serve(cfg: LMConfig):
+    """Decode/serve sharding: TP over 'model', dense weights replicated
+    over 'data', MoE experts 2D-sharded (E over 'data', FFN dim over
+    'model').  No FSDP storage shards, so no per-step weight gathers."""
+    attn = {
+        "wq": P(None, None, "model"),
+        "wk": P(None, None, None),
+        "wv": P(None, None, None),
+        "wo": P(None, "model", None),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = P(None, None)
+        attn["k_norm"] = P(None, None)
+    layer = {
+        "attn_norm": P(None, None),
+        "attn": attn,
+        "mlp_norm": P(None, None),
+    }
+    if cfg.moe:
+        moe = {
+            "router": P(None, None, None),
+            "we_gate": P(None, "data", None, "model"),
+            "we_up": P(None, "data", None, "model"),
+            "we_down": P(None, "data", "model", None),
+        }
+        if cfg.moe.n_shared:
+            moe["shared"] = {
+                "wi_gate": P(None, None, "model"),
+                "wi_up": P(None, None, "model"),
+                "wo": P(None, "model", None),
+            }
+        layer["moe"] = moe
+    else:
+        layer["mlp"] = {
+            "wi_gate": P(None, None, "model"),
+            "wi_up": P(None, None, "model"),
+            "wo": P(None, "model", None),
+        }
+    specs = {
+        "embed": P("model", None),
+        "layers": layer,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(None, "model")
+    return specs
+
+
+def cache_pspec(batch_axes, seq_axis=None):
+    """(L, B, S, KV, dh): batch over the data axes; long-context decode
+    shards the sequence dim instead (flash-decoding split-KV style)."""
+    return {
+        "k": P(None, batch_axes, seq_axis, None, None),
+        "v": P(None, batch_axes, seq_axis, None, None),
+    }

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.graph import _device
+from ..distributed.mesh_utils import P
 
 CHUNK = 1 << 26   # elements of a leaf updated at once (256 MB of f32)
 
@@ -47,11 +48,19 @@ def _tree_map(fn, tree, *rest):
 
 
 def _leaves(tree):
-    """Leaves in the reference's order (dict keys sorted, lists in order)."""
+    """Leaves in the reference's order (JAX's flattening): dict keys
+    sorted, lists and tuples in order, a dataclass's fields in declaration
+    order, ``None`` empty; a partition spec ``P`` is a leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, P):
+        return [tree]
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in _leaves(v)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [leaf for f in dataclasses.fields(tree) for leaf in _leaves(getattr(tree, f.name))]
     return [tree]
 
 

@@ -145,3 +145,32 @@ def test_entry_points_need_a_card_unless_asked():
     seeds = GraphBatchPipeline(3, 4).batch(0)
     assert seeds.device.type == "cpu"
     assert sample_blocks(g, seeds, (0, 1), (2,)).layers[0].device.type == "cpu"
+
+
+def test_model_registry_entry_points_need_a_card_unless_asked():
+    """MIND and the registry's smoke steps default to the card; the dry run's
+    cells are meta tensors and need no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import get_arch, make_dryrun_cell
+    from repro_torch.configs import mind as mind_cfg
+    from repro_torch.configs.lm_common import lm_smoke
+    from repro_torch.configs import h2o_danube3_4b
+    from repro_torch.models.recsys import mind
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mind.init(torch.Generator().manual_seed(0), mind_cfg.SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mind.params_from_numpy({"embed": np.zeros((2, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mind_cfg.mind_smoke()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mind_cfg.smoke_batch()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_smoke(h2o_danube3_4b.SMOKE)
+    for arch in ("mind", "gcn-cora", "h2o-danube-3-4b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_arch(arch).smoke_step()
+    assert mind_cfg.mind_smoke("cpu")["finite"]
+    cell = make_dryrun_cell("mind", "serve_p99")
+    assert {t.device.type for t in cell.arg_specs[0].values()} == {"meta"}
