@@ -307,7 +307,29 @@ non-zero exit before its last line:
    ``launch/dryrun.run_cell`` for mind's four cells and h2o-danube-3-4b x
    train_4k, then the meta account of the step 14c times (danube FULL, 1 x
    4,096 tokens, remat): its FLOPs beside 6·N·tokens and 14c's measured
-   step ms; one JSON line ``{"mind": {...}}`` before the kernels line.
+   step ms; one JSON line ``{"mind": {...}}`` before the kernels line;
+17. the examples and the harness as a user runs them (``repro_torch.examples``,
+   ``repro_torch.benchmarks.run``), each with the counts set to 0 just
+   before and read just after: 17a ``quickstart.main()`` (``edge_relax``
+   and ``advance`` launch; its results against its ``--device cpu`` run
+   within phase 5's limits, its printed lines equal but where pagerank's
+   top vertex parts at a tie within PR_TOL); 17b ``paper_suite.main(
+   ["--scale", "small"])``: all 21 oracle checks pass, read from
+   ``run_input``'s return, and ``intersect`` launches; 17c
+   ``serve_lm.main()``, then its weights and requests served on the CPU:
+   each request's tokens equal, or parting only where the CPU's top two
+   logits lie within 1e-4 of the row's largest (the least gap printed);
+   17d ``train_lm.main(["--steps", "20"])`` at ``model_100m``'s full width
+   (8 layers, d 512, 8-expert top-2 MoE, vocab 32,000; 16 x 256 tokens),
+   checkpoints in a temporary directory: finite losses, the last below
+   the first, step ms, tokens/s and peak memory (17c and 17d launch no
+   kernel); 17e the harness on the ``serving`` suite on the card, its JSON
+   read back by ``benchmarks/ci_gate.py serve`` in process under ci.yml's
+   bounds; 17f the f32 flash route (``flash_fwd_kernel``) on
+   ``kernels_bench``'s inputs (bh 2, S 256, d 64, causal) against its
+   plain version, with its ms, plain ms, bound and f32
+   ``scaled_dot_product_attention`` ms (not counted: a comparison); one
+   JSON line ``{"examples": {...}}`` before the kernels line.
 
 Agreement: labels, alive masks, core numbers and triangle counts bitwise;
 pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
@@ -325,7 +347,7 @@ stretch ``while_loop``) has a line of its own before the kernels line,
 rounds of the path's stretch timed through the graph (``ms``) and through
 the plain Python loop (``plain_ms``), with the largest difference of their
 labels (``max_abs_err``).  A kernel's ``launches`` sum its cuda launches
-on every path (phases 6, 8, 9, 9c, 9e-9i, 11, 12; in 9f those of this
+on every path (phases 6, 8, 9, 9c, 9e-9i, 11, 12, 17; in 9f those of this
 process, not of its children) and count the rounds a loop
 replays: a capture launches nothing, and each loop adds its captured
 round's launches for every round after its eager first one
@@ -4622,6 +4644,217 @@ def mind_phase(torch, np, kern, G, C, O, M, MC, dryrun, LC, T, dn_full, full_row
     return row
 
 
+# ---- phase 17: the examples, the harness, the f32 flash route ----------------
+
+EXAMPLE_TRAIN_STEPS = 20       # 17d: train_lm at model_100m's full width
+EXAMPLE_SERVE_RTOL = LM_SMALL_RTOL   # 17c: 13a's f32 limit, of the row's largest
+EXAMPLE_SUITE = "serving"      # 17e: the harness's suite on the card, and its gate
+EXAMPLE_GATE = dict(max_frac=0.5, min_qps=5.0, algos="bfs,sssp")   # ci.yml's bounds
+
+
+def counted(torch, kern, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: ``(result, counts)``."""
+    kern.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kern.launch_counts()
+
+
+def example_quickstart(torch, kern, qs):
+    """17a: quickstart on the card, its launches, and its results and lines
+    against the same module's ``--device cpu`` run within phase 5's limits."""
+    card, launches = counted(torch, kern, lambda: qs.main([]))
+    for k in ("edge_relax", "advance"):
+        check(launches[k] > 0, f"17a quickstart: kernel {k} was not launched")
+    cpu = qs.main(["--device", "cpu"])
+    for name in ("bfs", "sssp", "cc", "pr"):
+        compare_runs(torch, f"17a quickstart {name}", (*card[name], 0, 0),
+                     (*cpu[name], 0, 0), PR_TOL if name == "pr" else None)
+    for got, want in zip(card["lines"], cpu["lines"], strict=True):
+        if got == want:
+            continue
+        # only pagerank's top vertex may part, at a tie within PR_TOL
+        check(got.startswith("pr ") and want.startswith("pr "),
+              f"17a quickstart: card printed {got!r}, the CPU {want!r}")
+        rank = cpu["pr"][0]
+        top = int(got.rsplit(" ", 1)[1])
+        rtol, atol = PR_TOL
+        lim = rtol * float(rank.max()) + atol
+        check(float(rank.max() - rank[top]) <= lim,
+              f"17a quickstart: top vertex {top} is not within {lim} of the CPU's")
+        print(f"17a quickstart: pr's top vertex parts at a tie: {got!r} / {want!r}", flush=True)
+    print(f"17a quickstart: card == cpu, launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def example_paper_suite(torch, kern, ps):
+    """17b: paper_suite --scale small on the card: every oracle check,
+    read from run_input's return."""
+    res, launches = counted(torch, kern, lambda: ps.main(["--scale", "small"]))
+    checks = [(name, r["label"], r["ok"]) for name, rows in res.items() for r in rows]
+    failed = [c for c in checks if c[2] is not True]
+    check(len(checks) == 21 and not failed, f"17b paper_suite: checks failed: {failed}")
+    for k in ("edge_relax", "advance", "intersect"):
+        check(launches[k] > 0, f"17b paper_suite: kernel {k} was not launched")
+    ms = {name: {r["label"]: r["ms"] for r in rows} for name, rows in res.items()}
+    print(f"17b paper_suite: {len(checks)} oracle checks pass, launches "
+          f"{json.dumps(launches)}, ms {json.dumps(ms)}", flush=True)
+    return launches
+
+
+def example_serve_lm(torch, kern, serve, sl):
+    """17c: serve_lm on the card (its seeded weights), then the same
+    weights and requests served on the CPU: each request's tokens equal,
+    or parting where the CPU's top two logits lie within
+    EXAMPLE_SERVE_RTOL of the row's largest (later ticks follow the
+    parted stream and are not compared).  No kernel launches."""
+    t0 = time.perf_counter()
+    card, launches = counted(torch, kern, lambda: sl.main([]))
+    card_s = time.perf_counter() - t0
+    check(not any(launches.values()), f"17c serve_lm launched a kernel: {launches}")
+    specs = [(r.rid, r.prompt, r.max_new) for r in card["done"]]
+    cpu_server = serve.Server(sl.CFG, lm_to(card["server"].params, "cpu"), sl.MAX_BATCH,
+                              sl.MAX_SEQ, device="cpu")
+    cpu_tokens, cpu_logits = lm_serve(torch, serve, cpu_server, specs)[:2]
+    least, parted = math.inf, {}
+    for r in card["done"]:
+        want = cpu_tokens[r.rid]
+        for i, row in enumerate(cpu_logits[r.rid]):
+            top = row.topk(2).values
+            gap = float(top[0] - top[1]) / float(row.abs().max())
+            least = min(least, gap)
+            if r.out[i] != want[i]:
+                check(gap <= EXAMPLE_SERVE_RTOL,
+                      f"17c serve_lm: request {r.rid} parts at tick {i} ({r.out[i]} vs "
+                      f"{want[i]}) where the CPU's top-2 gap is {gap} of the row's largest")
+                parted[r.rid] = dict(tick=i, gap=gap)
+                break
+    print(f"17c serve_lm: {len(specs)} requests, card tokens == cpu but {parted}; the "
+          f"least CPU top-2 gap {least} of the row's largest (limit {EXAMPLE_SERVE_RTOL}); "
+          f"card run {card_s} s", flush=True)
+    return dict(requests=len(specs), parted=parted, least_top2_gap=least, seconds=card_s)
+
+
+def example_train_lm(torch, kern, tl):
+    """17d: train_lm --steps EXAMPLE_TRAIN_STEPS at model_100m's full width
+    on the card, checkpoints in a temporary directory: finite losses, the
+    last below the first; step ms (median after the first, host clock to
+    ``synchronize()``), tokens/s, peak memory.  No kernel launches."""
+    import tempfile
+    walls = []
+    real = tl.Trainer
+
+    class Timed(real):
+        def _build(self, params):
+            super()._build(params)
+            step = self._step
+
+            def timed(*state):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*state)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                return out
+            self._step = timed
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tl.Trainer = Timed
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as d:
+            res, launches = counted(torch, kern, lambda: tl.main(
+                ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt", d]))
+            saved = res["trainer"].ckpt.latest_step()
+    finally:
+        tl.Trainer = real
+    secs = time.perf_counter() - t0
+    losses = res["losses"]
+    check(not any(launches.values()), f"17d train_lm launched a kernel: {launches}")
+    check(len(losses) == EXAMPLE_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"17d train_lm: losses {losses}")
+    check(losses[-1] < losses[0], f"17d train_lm: the loss did not fall: {losses}")
+    check(saved == EXAMPLE_TRAIN_STEPS, f"17d train_lm: last snapshot at step {saved}")
+    cfg = res["trainer"].cfg
+    tokens = cfg.global_batch * cfg.seq_len
+    step_ms = median_after_first(walls)
+    row = dict(model=cfg.model.name, params=cfg.model.param_count, steps=len(losses),
+               tokens_per_step=tokens, first_loss=losses[0], last_loss=losses[-1],
+               step_ms=step_ms, first_step_ms=walls[0], tokens_per_s=tokens / step_ms * 1e3,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=secs)
+    print(f"17d train_lm: {json.dumps(row)}; losses {losses}", flush=True)
+    return row
+
+
+def example_harness(torch, kern, harness):
+    """17e: the harness on EXAMPLE_SUITE on the card, its JSON read back by
+    ``benchmarks/ci_gate.py serve`` in process under ci.yml's bounds."""
+    import tempfile
+    from benchmarks import ci_gate
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as d:
+        path = os.path.join(d, f"BENCH_torch_{EXAMPLE_SUITE}.json")
+        t0 = time.perf_counter()
+        rc, launches = counted(torch, kern, lambda: harness.main(
+            ["--suite", EXAMPLE_SUITE, "--emit-json", path]))
+        secs = time.perf_counter() - t0
+        check(rc == 0, f"17e harness --suite {EXAMPLE_SUITE} exited {rc}")
+        gate = ci_gate.cmd_serve(argparse.Namespace(bench=path, **EXAMPLE_GATE))
+        check(gate == 0, f"17e ci_gate serve failed on the card's {EXAMPLE_SUITE} JSON")
+    check(launches["edge_relax_lanes"] > 0, "17e harness: edge_relax_lanes was not launched")
+    print(f"17e harness: {EXAMPLE_SUITE} in {secs} s, ci_gate serve ok, launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches, secs
+
+
+def flash_f32_row(torch, np, kernels_bench, fk, fref):
+    """17f: the f32 route of flash attention (``flash_fwd_kernel``) on
+    kernels_bench's inputs (bh 2, S 256, d 64, causal) against its plain
+    version, timed beside it and beside ``scaled_dot_product_attention``
+    in f32.  Its launches compare and are not counted."""
+    import torch.nn.functional as F
+    (q, k, v), _, _ = kernels_bench.kernel_inputs(DEV, np.random.default_rng(0))
+    bh, s, d = q.shape
+    got, want = fk.flash_attention_bhsd(q, k, v), fref.flash_attention_plain(q, k, v)
+    err = float((got - want).abs().max())
+    check(got.dtype == torch.float32 and bool(
+        ((got - want).abs() <= F32_TOL + F32_TOL * want.abs()).all()),
+        f"17f flash f32: outside {F32_TOL} of its plain version (max err {err})")
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+    pairs = attention_pairs(s, None) * bh
+    row = dict(case=f"kernels_bench f32 bh={bh} S={s} d={d} causal", max_abs_err=err,
+               ms=cuda_ms(torch, lambda: fk.flash_attention_bhsd(q, k, v)),
+               plain_ms=cuda_ms(torch, lambda: fref.flash_attention_plain(q, k, v)),
+               library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=True)),
+               pairs=pairs, flops=4 * d * pairs, route="CUDA cores, f32 (flash_fwd_kernel)")
+    row["bound_ms"], row["bound_by"] = bound_ms(4 * bh * s * d * 4, 4 * d * pairs)
+    print(f"17f flash f32: {json.dumps(row)}", flush=True)
+    return row
+
+
+def examples_phase(torch, np, kern, mods, card):
+    """17: the four examples and the harness on the card, then the f32
+    flash row.  Returns the launches of the examples and the harness."""
+    qs, ps, sl, tl, harness, serve, kernels_bench, fk, fref = mods
+    t0 = time.perf_counter()
+    launches = [example_quickstart(torch, kern, qs), example_paper_suite(torch, kern, ps)]
+    serve_row = example_serve_lm(torch, kern, serve, sl)
+    torch.cuda.empty_cache()
+    train_row = example_train_lm(torch, kern, tl)
+    torch.cuda.empty_cache()
+    harness_launches, harness_s = example_harness(torch, kern, harness)
+    launches.append(harness_launches)
+    flash = flash_f32_row(torch, np, kernels_bench, fk, fref)
+    total = {k: sum(x[k] for x in launches) for k in launches[0]}
+    row = {"launches": total, "serve_lm": serve_row, "train_lm": train_row,
+           "harness": {"suite": EXAMPLE_SUITE, "seconds": harness_s}, "flash_f32": flash,
+           "seconds": time.perf_counter() - t0, "card": card}
+    print(f"17: {row['seconds']} s on {card}", flush=True)
+    print(json.dumps({"examples": row}), flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--communities", type=int, default=512,
@@ -4688,6 +4921,8 @@ def main() -> int:
     from repro_torch.configs import mind as mind_cfg
     from repro_torch.launch import dryrun
     from repro_torch.models.recsys import mind as mind_model
+    from repro_torch.benchmarks import run as harness
+    from repro_torch.examples import paper_suite, quickstart, serve_lm, train_lm
     algos = (bfs, sssp, cc, pagerank)
     suite = (kcore, bc, tri)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4969,12 +5204,20 @@ def main() -> int:
     # and the dry run's account of mind's cells, danube's train_4k and 14c's step
     mind_phase(torch, np, kern, gnn_common, gnn_c, lm_optim, mind_model, mind_cfg, dryrun,
                lm_common, transformer, lm_danube.FULL, lm_train["full"], card)
+    torch.cuda.empty_cache()
+
+    # 17. the examples and the harness as a user runs them, then the f32
+    # flash route on kernels_bench's inputs
+    example_launches = examples_phase(
+        torch, np, kern, (quickstart, paper_suite, serve_lm, train_lm, harness,
+                          lm_serve_mod, kernels_bench, fk, fref), card)
 
     # every path's cuda launches: the three graph paths count graph_ops only
     total = {k: sum(path.get(k, 0) for path in (launches, web_launches, kron_launches,
                                                 suite_launches, resume_launches,
                                                 dyn_launches, ms_launches, mesh_launches,
-                                                layer_launches, bench_launches))
+                                                layer_launches, bench_launches,
+                                                example_launches))
              for k in bench_launches}
     total["edge_relax"] += ooc_relax
     src_file = "src/repro_torch/kernels/graph_ops/csrc/graph_ops.cu"

@@ -174,3 +174,28 @@ def test_model_registry_entry_points_need_a_card_unless_asked():
     assert mind_cfg.mind_smoke("cpu")["finite"]
     cell = make_dryrun_cell("mind", "serve_p99")
     assert {t.device.type for t in cell.arg_specs[0].values()} == {"meta"}
+
+
+@pytest.mark.parametrize("module, argv", [
+    ("repro_torch.examples.quickstart", []),
+    ("repro_torch.examples.paper_suite", ["--no-verify"]),
+    ("repro_torch.examples.serve_lm", ["--requests", "1"]),
+    ("repro_torch.examples.train_lm", ["--tiny", "--steps", "1"]),
+    ("repro_torch.benchmarks.run", ["--suite", "roofline"]),
+], ids=["quickstart", "paper_suite", "serve_lm", "train_lm", "harness"])
+def test_examples_and_harness_need_a_card_unless_asked(module, argv, tmp_path, monkeypatch):
+    """Each example and the harness raise without a card unless given
+    ``--device cpu`` (``test_torch_examples.py`` and ``test_torch_harness.py``
+    run them with it); the harness checks before its first suite, so even
+    ``roofline``, which touches no device, is refused."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    main = importlib.import_module(module).main
+    if module.endswith("train_lm"):
+        argv = argv + ["--ckpt", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert not (tmp_path / "ck").exists()
