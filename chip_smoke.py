@@ -11,8 +11,9 @@ non-zero exit before its last line:
 2. build: every kernel library (``src/repro_torch/kernels/*/csrc/*.cu``:
    graph_ops, flash_attention, spmm_bsr, embedding_bag), one ``nvcc`` each,
    all at once, into the git-ignored ``build/repro_torch``; then, for each
-   instantiation of the two tensor-core kernels (the bf16 flash-attention
-   kernel ``flash_tc_kernel`` and ``spmm_kernel``), its registers, spills
+   instantiation of the three tensor-core kernels (the bf16 and f32
+   flash-attention kernels ``flash_tc_kernel`` and ``flash_f32_kernel``,
+   and ``spmm_kernel``), its registers, spills
    and shared memory from ``-Xptxas -v`` (no spills allowed) and, where
    the toolkit has ``cuobjdump``, the count of ``HMMA`` (tensor-core)
    instructions in its SASS (none is a failure);
@@ -325,11 +326,17 @@ non-zero exit before its last line:
    the first, step ms, tokens/s and peak memory (17c and 17d launch no
    kernel); 17e the harness on the ``serving`` suite on the card, its JSON
    read back by ``benchmarks/ci_gate.py serve`` in process under ci.yml's
-   bounds; 17f the f32 flash route (``flash_fwd_kernel``) on
-   ``kernels_bench``'s inputs (bh 2, S 256, d 64, causal) against its
-   plain version, with its ms, plain ms, bound and f32
-   ``scaled_dot_product_attention`` ms (not counted: a comparison); one
-   JSON line ``{"examples": {...}}`` before the kernels line.
+   bounds; 17f the f32 flash route (``flash_f32_kernel``, split TF32 on
+   the tensor cores) against its plain version within 2e-5 (atol + rtol)
+   at (a) ``kernels_bench``'s inputs (bh 2, S 256, d 64, causal: split-KV,
+   merged in a cluster), (b) train_lm's ``model_100m`` attention (bh 128,
+   S 256, d 64), (c) h2o-danube-3-4b's heads at ``train_4k``'s length (bh
+   32, S 4096, d 120, window 4096), each with its ms, plain ms, f32
+   ``scaled_dot_product_attention`` ms and bounds (bytes, split TF32,
+   CUDA cores), and at FLASH_SMALL's two shapes and d = 30 in f32,
+   checked only; each call must raise ``launches`` and ``tc_launches``
+   (not counted: a comparison); one JSON line ``{"examples": {...}}``
+   before the kernels line.
 
 Agreement: labels, alive masks, core numbers and triangle counts bitwise;
 pagerank rtol 1e-4 / atol 1e-10; bc rtol 1e-3 / atol 1e-4 (its sigma and
@@ -3029,24 +3036,29 @@ def sass_hmma(build, stem):
 
 def tc_kernel_report(build):
     """The tensor-core kernels' instantiations — the bf16 flash kernel's
-    eight and spmm_kernel's four — registers, spills and static shared
-    memory from ``-Xptxas -v`` (beside the dynamic bytes of a flash
-    launch), and, where the toolkit has ``cuobjdump``, the ``HMMA``
-    instructions in each one's SASS.  Fails on a spill or on no HMMA."""
+    eight, the f32 flash kernel's four and spmm_kernel's four — registers,
+    spills and static shared memory from ``-Xptxas -v`` (beside the
+    dynamic bytes of a flash launch at the instantiation's widest head),
+    and, where the toolkit has ``cuobjdump``, the ``HMMA`` instructions in
+    each one's SASS.  Fails on a spill or on no HMMA."""
     lib = build.load("flash_attention")
+    hmma = {stem: sass_hmma(build, stem) for stem in ("flash_attention", "spmm_bsr")}
     for stem, frag, count in (("flash_attention", "flash_tc_kernel", 8),
+                              ("flash_attention", "flash_f32_kernel", 4),
                               ("spmm_bsr", "spmm_kernel", 4)):
         info = {name: v for name, v in build.ptxas_info(stem).items() if frag in name}
         check(len(info) == count, f"{frag}: {len(info)} instantiations in the ptxas log")
-        hmma = sass_hmma(build, stem)
         for name, v in sorted(info.items()):
-            if frag == "flash_tc_kernel":
-                nk = int(name.split("flash_tc_kernelILi", 1)[1].split("E", 1)[0])
-                label = f"flash_tc_kernel<DP={16 * nk}>"
-                dyn = f" dynamic smem {lib.flash_attention_tc_smem_bytes(16 * nk)} B"
-            else:
+            if frag == "spmm_kernel":
                 label, dyn = f"spmm_kernel {name}", ""
-            n_hmma = None if hmma is None else hmma.get(name, 0)
+            else:
+                n = int(name.split(f"{frag}ILi", 1)[1].split("E", 1)[0])
+                width, smem_bytes = ((16 * n, lib.flash_attention_tc_smem_bytes)
+                                     if frag == "flash_tc_kernel"
+                                     else (8 * n, lib.flash_attention_f32_smem_bytes))
+                label = f"{frag}<{n}> (d <= {width})"
+                dyn = f" dynamic smem {smem_bytes(width)} B"
+            n_hmma = None if hmma[stem] is None else hmma[stem].get(name, 0)
             print(f"  {label}: registers {v.get('registers')} spill stores "
                   f"{v.get('spill_stores')} loads {v.get('spill_loads')} stack "
                   f"{v.get('stack')} static smem {v.get('smem')} B{dyn}; HMMA in SASS "
@@ -4807,30 +4819,94 @@ def example_harness(torch, kern, harness):
     return launches, secs
 
 
-def flash_f32_row(torch, np, kernels_bench, fk, fref):
-    """17f: the f32 route of flash attention (``flash_fwd_kernel``) on
-    kernels_bench's inputs (bh 2, S 256, d 64, causal) against its plain
-    version, timed beside it and beside ``scaled_dot_product_attention``
-    in f32.  Its launches compare and are not counted."""
+# 17f: the f32 route of flash attention, (name, bh, S, d, window, causal):
+# (a) kernels_bench's inputs (kernel_inputs); (b) train_lm's model_100m
+# attention, 16 sequences x 8 heads of 64 at S 256 (examples/train_lm.py);
+# (c) h2o-danube-3-4b's heads in f32 at train_4k's length (DANUBE; its
+# window of 4096 hides nothing at S 4096) — each timed; then FLASH_SMALL's
+# two ragged shapes and a width that is not a multiple of 4 (element-wise
+# tile loads in f32), checked only
+FLASH_F32_TIMED = (("(a) kernels_bench f32", 2, 256, 64, None, True),
+                   ("(b) train_lm model_100m", 16 * 8, 256, 64, None, True),
+                   ("(c) h2o-danube-3-4b train_4k f32", DANUBE["n_heads"], 4096,
+                    DANUBE["d_head"], DANUBE["sliding_window"], True))
+FLASH_F32_CHECKED = FLASH_SMALL + (("width 30, ragged S", 3, 150, 30, None, True),)
+FLASH_F32_ROUTE = ("tensor cores: mma.sync m16n8k8 split TF32 (lo.hi + hi.lo + hi.hi), f32 "
+                   "accumulators; split-KV merged in a thread-block cluster where the query "
+                   "tiles do not fill the card")
+# CUDA-event reps of a timed 17f case: 50 where a call is launch-bound
+# (tens of microseconds), 5 at (c)
+FLASH_F32_REPS_SHORT, FLASH_F32_SHORT_PAIRS = 50, 10**8
+
+
+def flash_f32_rows(torch, np, kernels_bench, fk, fref):
+    """17f: the f32 route of flash attention (``flash_f32_kernel``) at
+    FLASH_F32_TIMED's shapes, each against its plain version within
+    F32_TOL (atol + rtol) and timed beside it and beside
+    ``scaled_dot_product_attention`` in f32 (CUDA events, 50 calls where
+    one takes tens of microseconds, else 5), with its bounds: bytes
+    16 bh S d, the split's 12 d a pair at the TF32 rate, and 4 d a pair at
+    the f32 CUDA-core rate; then FLASH_F32_CHECKED's shapes, checked.
+    Each first call must add one to ``launches`` and to ``tc_launches``.
+    Its launches compare and are not counted."""
     import torch.nn.functional as F
-    (q, k, v), _, _ = kernels_bench.kernel_inputs(DEV, np.random.default_rng(0))
-    bh, s, d = q.shape
-    got, want = fk.flash_attention_bhsd(q, k, v), fref.flash_attention_plain(q, k, v)
-    err = float((got - want).abs().max())
-    check(got.dtype == torch.float32 and bool(
-        ((got - want).abs() <= F32_TOL + F32_TOL * want.abs()).all()),
-        f"17f flash f32: outside {F32_TOL} of its plain version (max err {err})")
-    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
-    pairs = attention_pairs(s, None) * bh
-    row = dict(case=f"kernels_bench f32 bh={bh} S={s} d={d} causal", max_abs_err=err,
-               ms=cuda_ms(torch, lambda: fk.flash_attention_bhsd(q, k, v)),
-               plain_ms=cuda_ms(torch, lambda: fref.flash_attention_plain(q, k, v)),
-               library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                   q4, k4, v4, is_causal=True)),
-               pairs=pairs, flops=4 * d * pairs, route="CUDA cores, f32 (flash_fwd_kernel)")
-    row["bound_ms"], row["bound_by"] = bound_ms(4 * bh * s * d * 4, 4 * d * pairs)
-    print(f"17f flash f32: {json.dumps(row)}", flush=True)
-    return row
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(27)
+    rows = []
+    cases = [(*c, True) for c in FLASH_F32_TIMED] + [(*c, False) for c in FLASH_F32_CHECKED]
+    for name, bh, s, d, window, causal, timed in cases:
+        if name.startswith("(a)"):
+            (q, k, v), _, _ = kernels_bench.kernel_inputs(DEV, np.random.default_rng(0))
+            check(q.shape == (bh, s, d), f"17f: kernels_bench's flash inputs are {q.shape}")
+        else:
+            q, k, v = (torch.randn((bh, s, d), generator=gen, device=DEV) for _ in range(3))
+        kw = dict(causal=causal, window=window)
+
+        def kernel():
+            return fk.flash_attention_bhsd(q, k, v, **kw)
+
+        before = fk.flash_attention_bhsd.launches, fk.flash_attention_bhsd.tc_launches
+        got = kernel()
+        torch.cuda.synchronize()
+        check((fk.flash_attention_bhsd.launches, fk.flash_attention_bhsd.tc_launches) ==
+              (before[0] + 1, before[1] + 1), f"17f flash f32 {name}: no tensor-core launch "
+              f"counted")
+        want = fref.flash_attention_plain(q, k, v, **kw)
+        err = (got - want).abs()
+        check(got.dtype == torch.float32 and got.shape == q.shape and bool(
+            torch.isfinite(got).all()) and bool((err <= F32_TOL + F32_TOL * want.abs()).all()),
+            f"17f flash f32 {name}: outside {F32_TOL} of its plain version (max err "
+            f"{float(err.max())})")
+        row = dict(case=name, bh=bh, s=s, d=d, window=window, causal=causal,
+                   splits=fk.kv_splits(bh, s, causal, window,
+                                       torch.cuda.get_device_properties(0).multi_processor_count),
+                   max_abs_err=float(err.max()), route=FLASH_F32_ROUTE)
+        del got, want, err
+        if timed:
+            pairs = attention_pairs(s, window, causal) * bh
+            reps = FLASH_F32_REPS_SHORT if pairs < FLASH_F32_SHORT_PAIRS else 5
+            check(causal and (window is None or window >= s),
+                  f"17f {name}: SDPA's is_causal is not this mask")
+            q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+            row["library"] = "scaled_dot_product_attention f32, is_causal"
+            row["ms"] = cuda_ms(torch, kernel, reps)
+            row["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), reps)
+            row["plain_ms"] = cuda_ms(torch, lambda: fref.flash_attention_plain(q, k, v, **kw))
+            row["reps"] = reps
+            nbytes = 16 * bh * s * d                # q, k, v read, out written, f32
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 12 * d * pairs,
+                                                        H100_TF32_TC_OPS_PER_S)
+            row.update(bound_bytes_ms=bound_ms(nbytes, 0)[0],
+                       bound_split_tf32_ms=bound_ms(0, 12 * d * pairs, H100_TF32_TC_OPS_PER_S)[0],
+                       bound_cuda_cores_ms=bound_ms(0, 4 * d * pairs)[0], pairs=pairs,
+                       flops=4 * d * pairs, tc_flops=12 * d * pairs,
+                       tflops=4 * d * pairs / row["ms"] / 1e9)
+        rows.append(row)
+        print(f"17f flash f32: {json.dumps(row)}", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def examples_phase(torch, np, kern, mods, card):
@@ -4845,7 +4921,7 @@ def examples_phase(torch, np, kern, mods, card):
     torch.cuda.empty_cache()
     harness_launches, harness_s = example_harness(torch, kern, harness)
     launches.append(harness_launches)
-    flash = flash_f32_row(torch, np, kernels_bench, fk, fref)
+    flash = flash_f32_rows(torch, np, kernels_bench, fk, fref)
     total = {k: sum(x[k] for x in launches) for k in launches[0]}
     row = {"launches": total, "serve_lm": serve_row, "train_lm": train_row,
            "harness": {"suite": EXAMPLE_SUITE, "seconds": harness_s}, "flash_f32": flash,

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, one package each, built by
 ``build.py``.  ``KERNELS`` maps each kernel's name to the wrapper that
 launches it; every wrapper counts its launches in ``.launches`` (and flash
-attention its bf16 launches, on the tensor cores, in ``.tc_launches``)."""
+attention its launches on the tensor cores, now every one, in
+``.tc_launches``)."""
 
 from .embedding_bag.embedding_bag import embedding_bag
 from .flash_attention.flash_attention import flash_attention_bhsd

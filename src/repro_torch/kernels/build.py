@@ -81,10 +81,12 @@ SIGNATURES = {
                              _I),
     },
     "flash_attention": {
-        # q, k, v, out, bh, s, d, causal, window (-1 = none), scale, stream;
-        # f32 on the CUDA cores, bf16 (``_tc``) on the tensor cores
-        "flash_attention_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+        # q, k, v, out, bh, s, d, causal, window (-1 = none), scale, splits
+        # (f32 only), stream; f32 in split TF32 and bf16 (``_tc``), both on
+        # the tensor cores
+        "flash_attention_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], _I),
         "flash_attention_forward_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+        "flash_attention_f32_smem_bytes": ([_I], _I),  # d
         "flash_attention_tc_smem_bytes": ([_I], _I),   # d
     },
 }

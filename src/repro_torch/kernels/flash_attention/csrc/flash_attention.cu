@@ -23,7 +23,8 @@
 //   Bound: operations.  4*d per unmasked (query, key) pair (2*d for q . k,
 //   2*d for p @ v) against 2*d bytes per row of q, k, v and out each, so a
 //   long sequence is far above the ridge; the bound counts that work at
-//   the bf16 tensor-core rate (989 TFLOP/s).
+//   the bf16 tensor-core rate (989 TFLOP/s), and in f32 as the split's
+//   12*d per pair at the TF32 rate (495 TFLOP/s).
 //
 //   bf16 — flash_tc_kernel, on the tensor cores (FlashAttention-2's shape
 //   on mma.sync.m16n8k16 bf16 with f32 accumulators):
@@ -61,15 +62,68 @@
 //     a pointer is not 16-byte aligned) a row is not made of whole 16-byte
 //     chunks, and the same kernel loads its tiles element by element.
 //
-//   f32 — flash_fwd_kernel, on the CUDA cores, exact to f32 (f32 products
-//   on bf16 tensor cores would lose the reference's precision): one block
-//   of 256 threads per (bh, 64-query tile); the block holds its Q tile
-//   transposed in shared memory and loops over the key tiles the mask does
-//   not hide: it stages K transposed and V, then each thread computes a
-//   4-query x 4-key patch of the scores, reduces row max and row sum over
-//   the 16 lanes that share its rows with shuffles, writes p transposed to
-//   shared memory, and accumulates its 4 rows x (4 or 8) columns of acc in
-//   registers.  V's rows are padded to a multiple of 4 with zeros.
+//   f32 — flash_f32_kernel, on the tensor cores in split TF32 (the layout
+//   above, on mma.sync.m16n8k8 TF32 with f32 accumulators):
+//   * every f32 operand x is split into hi = tf32(x) (round to nearest,
+//     ties away, by two integer operations, as spmm_bsr.cu rounds) and
+//     lo = x - hi, exact, truncated to TF32 by one AND (CUTLASS's
+//     round-toward-zero conversion); each product is lo.hi + hi.lo + hi.hi
+//     into one f32 accumulator, both for S = Q K^T and for O += P V.  hi.hi
+//     is exact in f32 and the rest costs about 2^-21 of each term, so the
+//     output keeps f32's accuracy to a few ulps (one TF32 product, 2^-11,
+//     would miss the reference's 2e-5).  The split is the kernel's own:
+//     torch's allow_tf32 plays no part.  The work is 12*d tensor-core
+//     operations per unmasked pair against 4*d.
+//   * the depth pads to DP = 8 ceil(d / 8) (120 stays 120).  The
+//     instantiation fixes NKMAX, the 8-column tiles of O a thread holds (4,
+//     8, 12 or 16); S = Q K^T runs DP / 8 k-steps, and P V runs all NKMAX
+//     tiles, those past DP on the last tile's columns and never written: a
+//     branch per tile there kept the scheduler from overlapping the tiles'
+//     loads and products, and cost more than the spare ones.
+//   * one block of 4 warps per (bh, 64-query tile, split), blocks ordered
+//     by query tile, last first, across all heads (grouping the heads so
+//     that their K and V stay in L2 delayed the long tiles of the later
+//     groups, and was slower); each warp owns 16 query rows and its scores
+//     stay in registers (8 n-tiles of a 64-key tile).  Q stays in shared
+//     memory and is read by ldmatrix and split again at each k-step: in
+//     registers, Q's hi and lo at DP = 128 would take 128 registers a
+//     thread beside O's 64.  K's B fragments come by ldmatrix too (an f32
+//     element is two b16 halves, so ldmatrix's non-transposed tiles are
+//     TF32's A and B fragments).  Tiles the mask hides from a warp are
+//     skipped, the mask is evaluated only on tiles that straddle an edge,
+//     and the softmax is the bf16 kernel's (raw max, ex2).
+//   * P never touches shared memory: the accumulator fragment of an 8-key
+//     score n-tile holds keys (2 tig, 2 tig + 1) of rows (g, g + 8), and
+//     the A fragment wants columns (tig, tig + 4).  Column tig is taken to
+//     be key 2 tig and column tig + 4 key 2 tig + 1, so (c0, c2, c1, c3) is
+//     the A fragment as it stands, and V's B fragment is read in the same
+//     order: b0 = V[2 tig][g], b1 = V[2 tig + 1][g].  The sum over the 8
+//     keys is the same sum.
+//   * shared memory holds Q, one K and one V tile, 64 x (DP + 4) floats
+//     each (101,376 B at DP = 128).  The + 4 makes every 32-bit fragment
+//     load and every ldmatrix row conflict-free for any DP that is a
+//     multiple of 8.  The copies are 16-byte cp.async.cg: V of a tile is in
+//     flight while the block computes its scores, and K of the next tile
+//     while it runs the softmax and P V, so two barriers a tile serve both
+//     as "landed" and as "everyone is done with it".  With d % 4 != 0 or
+//     an unaligned pointer the same kernel loads element by element,
+//     synchronously.
+//   * registers: O 4 NKMAX, the scores 32; two blocks an SM (three at
+//     NKMAX 4; at 8 the cap of 170 registers spills), no spill in any
+//     instantiation (-Xptxas -v; chip_smoke.py phase 2 prints them).
+//   * split-KV: when bh x ceil(S / 64) blocks do not fill the card, the
+//     wrapper (flash_attention.kv_splits) gives each query tile `splits`
+//     blocks (at most 8), each over a contiguous share of its visible key
+//     tiles, and the launch makes them one thread-block cluster.  Each
+//     leaves its unnormalised (m, l, acc) in its shared memory; after a
+//     cluster barrier each block merges a slice of the tile's rows from
+//     all of them through distributed shared memory, out = sum(w acc) /
+//     max(sum(w l), 1e-30) with w = 2^((m - max m) scale log2(e)), and a
+//     second barrier keeps every block's shared memory until all have
+//     read it.  An empty share leaves m = -1e30, l = 0, acc = 0, whose
+//     weight is 0.  No scratch and no second launch: at the short shapes
+//     that split, the host's allocation and launch cost more than the
+//     kernel.
 //
 //   Both take any 0 < d <= 128; above 48 KB of shared memory the launch
 //   raises the kernel's dynamic limit first.
@@ -77,7 +131,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -85,178 +142,6 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 using bf16 = __nv_bfloat16;
-
-// ---- f32: CUDA cores -------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;            // queries per block
-constexpr int kBK = 64;            // keys per tile
-constexpr int kQTS = kBQ + 4;      // row stride of Qt and Pt (float4 rows)
-constexpr int kKTS = kBK + 1;      // row stride of Kt (odd: conflict-free stores)
-
-__host__ __device__ __forceinline__ int round4(int d) { return (d + 3) & ~3; }
-
-// shared memory: Qt [d][kQTS], Pt [kBK][kQTS], Vs [kBK][round4(d)], Kt [d][kKTS]
-__host__ __device__ __forceinline__ size_t smem_floats(int d) {
-  return static_cast<size_t>(d) * kQTS + static_cast<size_t>(kBK) * kQTS +
-         static_cast<size_t>(kBK) * round4(d) + static_cast<size_t>(d) * kKTS;
-}
-
-// NJ4: float4 column groups of acc per thread (1 for d <= 64, 2 up to 128)
-template <int NJ4>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S, int d,
-                 int causal, int window, float scale, int n_qt) {
-  extern __shared__ __align__(16) float smem[];
-  const int VS = round4(d);
-  float* Qt = smem;                 // Qt[kk][row]
-  float* Pt = Qt + d * kQTS;        // Pt[key][row]
-  float* Vs = Pt + kBK * kQTS;      // Vs[key][col]
-  float* Kt = Vs + kBK * VS;        // Kt[kk][key]
-
-  const int bh = blockIdx.x / n_qt;
-  const int qt = n_qt - 1 - (blockIdx.x - bh * n_qt);
-  const int q0 = qt * kBQ;
-  const size_t base = static_cast<size_t>(bh) * S * d;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  for (int idx = threadIdx.x; idx < kBQ * d; idx += kThreads) {
-    const int r = idx / d, c = idx - r * d;
-    Qt[c * kQTS + r] = q0 + r < S ? q[base + static_cast<size_t>(q0 + r) * d + c] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][4 * NJ4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4 * NJ4; ++j) acc[i][j] = 0.f;
-  }
-
-  // key tiles some query of this tile can see
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int kt_hi = (k_end + kBK - 1) / kBK;
-
-  for (int kt = k_begin / kBK; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's Kt / Vs / Pt are read
-    for (int idx = threadIdx.x; idx < kBK * d; idx += kThreads) {
-      const int r = idx / d, c = idx - r * d;
-      Kt[c * kKTS + r] = k0 + r < S ? k[base + static_cast<size_t>(k0 + r) * d + c] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < kBK * VS; idx += kThreads) {
-      const int r = idx / VS, c = idx - r * VS;
-      Vs[idx] = (k0 + r < S && c < d) ? v[base + static_cast<size_t>(k0 + r) * d + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < d; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[kk * kQTS + 4 * ty]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      float b[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Kt[kk * kKTS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], b[j], s[i][j]);
-    }
-
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < S && (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(kFull, rs, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = corr * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * NJ4; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(tx + 16 * j) * kQTS + 4 * ty]) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int key = 0; key < kBK; ++key) {
-      const float4 pp = *reinterpret_cast<const float4*>(&Pt[key * kQTS + 4 * ty]);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
-#pragma unroll
-      for (int g = 0; g < NJ4; ++g) {
-        const int col = 4 * tx + 64 * g;
-        if (col >= VS) continue;
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[key * VS + col]);
-        const float vf[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][4 * g + e] = fmaf(pv[i], vf[e], acc[i][4 * g + e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = out + base + static_cast<size_t>(row) * d;
-#pragma unroll
-    for (int g = 0; g < NJ4; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * tx + 64 * g + e;
-        if (col < d) orow[col] = acc[i][4 * g + e] / denom;
-      }
-  }
-}
-
-template <int NJ4>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int S, int d,
-               int causal, int window, float scale, cudaStream_t st) {
-  const size_t bytes = smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<NJ4>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (S + kBQ - 1) / kBQ;
-  flash_fwd_kernel<NJ4><<<bh * n_qt, kThreads, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, d, causal, window, scale,
-      n_qt);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- bf16: tensor cores ----------------------------------------------------
 
@@ -303,7 +188,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// four 8 x 8 b16 matrices (an f32 element is two b16 halves)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
@@ -581,6 +467,396 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int bh, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- f32: split TF32 on the tensor cores -----------------------------------
+
+constexpr int kF32Warps = 4;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32BQ = 16 * kF32Warps;   // queries per block, 16 per warp
+constexpr int kF32BK = 64;               // keys per tile: 8 mma n-tiles
+constexpr int kF32Pad = 4;               // floats of padding per shared row (16 B)
+constexpr int kMaxDevices = 64;          // devices whose shared memory limit is remembered
+constexpr int kMaxSplits = 8;            // blocks of a cluster (the portable most)
+static_assert(kF32BQ == kF32BK, "Q, K and V tiles have the same rows");
+
+// floats per shared row at width d: the depth rounded up to 8, plus the pad
+__host__ __device__ __forceinline__ int f32_stride(int d) { return ((d + 7) & ~7) + kF32Pad; }
+
+// shared memory: the Q tile, one K and one V tile
+__host__ __device__ __forceinline__ size_t f32_smem_bytes(int d) {
+  return sizeof(float) * static_cast<size_t>(kF32BQ + 2 * kF32BK) * f32_stride(d);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cvt.rna.tf32.f32 in two integer operations, as spmm_bsr.cu rounds: half
+// a TF32 ulp added to the magnitude, the 13 bits below TF32's mantissa
+// cleared (round to nearest, ties away from zero)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v -> hi = tf32(v) and lo = v - hi (exact) truncated to TF32 by one AND,
+// as CUTLASS's round-toward-zero conversion truncates
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate; not
+// volatile (registers only), so independent products may be interleaved
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in split TF32: lo.hi + hi.lo + hi.hi, the small terms first
+__device__ __forceinline__ void mma_split(float (&c)[4], const uint32_t (&a_hi)[4],
+                                          const uint32_t (&a_lo)[4], uint32_t b_hi0,
+                                          uint32_t b_hi1, uint32_t b_lo0, uint32_t b_lo1) {
+  mma_tf32(c, a_lo, b_hi0, b_hi1);
+  mma_tf32(c, a_hi, b_lo0, b_lo1);
+  mma_tf32(c, a_hi, b_hi0, b_hi1);
+}
+
+// This thread's share of a 64-row tile copy: a row of DP floats is `units`
+// copies (16-byte chunks when vec, else floats); thread i copies unit
+// i % units of rows i / units, i / units + step, ... (threads past step x
+// units copy nothing)
+struct TileCopy {
+  int r, col, step;
+  __device__ TileCopy(int dp, bool vec) {
+    const int units = vec ? dp / 4 : dp;
+    step = kF32Threads / units;
+    r = threadIdx.x / units;
+    col = (threadIdx.x - r * units) * (vec ? 4 : 1);
+    if (r >= step) r = kF32BK;
+  }
+};
+
+// rows [r0, r0 + 64) of one head's (S, d) matrix into a shared tile of ld
+// floats a row, zero past S and past d: 16-byte cp.async copies when
+// `vec`, else element by element (synchronous)
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src, int r0,
+                                              int S, int d, int ld, const TileCopy& tc,
+                                              bool vec) {
+  for (int r = tc.r; r < kF32BK; r += tc.step) {
+    const bool ok = r0 + r < S && tc.col < d;
+    const float* from = ok ? src + static_cast<size_t>(r0 + r) * d + tc.col : src;
+    if (vec)
+      cp_async16(dst + r * ld + tc.col, from, ok ? 16 : 0);
+    else
+      dst[r * ld + tc.col] = ok ? *from : 0.f;
+  }
+}
+
+// NKMAX: the 8-column tiles of O a thread holds (4, 8, 12 or 16); S runs
+// nk = ceil(d / 8) k-steps, P V all NKMAX tiles.  With splits > 1 the
+// launch makes each query tile's `splits` blocks (consecutive) one cluster.
+template <int NKMAX>
+__global__ void __launch_bounds__(kF32Threads, NKMAX <= 4 ? 3 : 2)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int n_bh, int S,
+                 int d, int causal, int window, float scale_log2, int n_qt, int splits,
+                 int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nk = (d + 7) >> 3;
+  const int ld = 8 * nk + kF32Pad;
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + kF32BQ * ld;
+  float* Vs = Ks + kF32BK * ld;
+
+  // block -> (split, head, query tile), every head's last query tile first
+  const int split = blockIdx.x % splits;
+  const int rest = blockIdx.x / splits;
+  const int bh = rest % n_bh;
+  const int q0 = (n_qt - 1 - rest / n_bh) * kF32BQ;
+  const size_t base = static_cast<size_t>(bh) * S * d;
+  const float* qh = q + base;
+  const float* kh = k + base;
+  const float* vh = v + base;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;   // mma fragment row group, lane in the quad
+  const int wq0 = q0 + 16 * warp;            // the warp's first query
+
+  // the key tiles some query of this block can see, and this split's
+  // contiguous share of them (flash_attention.split_ranges in Python)
+  const int k_end = causal ? min(S, q0 + kF32BQ) : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t0 = k_begin / kF32BK;
+  const long long n_t = (k_end + kF32BK - 1) / kF32BK - t0;
+  const int kt_lo = t0 + static_cast<int>(split * n_t / splits);
+  const int kt_hi = t0 + static_cast<int>((split + 1) * n_t / splits);
+
+  const TileCopy tc(8 * nk, vec);
+  load_tile_f32(Qs, qh, q0, S, d, ld, tc, vec);
+  if (kt_lo < kt_hi) load_tile_f32(Ks, kh, kt_lo * kF32BK, S, d, ld, tc, vec);
+  cp_async_commit();
+  if (kt_lo < kt_hi) load_tile_f32(Vs, vh, kt_lo * kF32BK, S, d, ld, tc, vec);
+  cp_async_commit();
+  cp_async_wait<1>();   // Q and the first K tile (this thread's copies), then everyone's
+  __syncthreads();
+
+  float o[NKMAX][4];   // O: 16 rows x 8 NKMAX, 8 columns per n-tile
+#pragma unroll
+  for (int n = 0; n < NKMAX; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // rows g and g + 8, in units of the raw q . k
+  float l[2] = {0.f, 0.f};           // this lane's part of the row sums
+
+  // ldmatrix rows: Q's A fragment (matrices 1 and 3 eight rows on, 2 and 3
+  // four columns on) and two score n-tiles' B fragments of K (matrices 2
+  // and 3 eight keys on, 1 and 3 four columns on); V's B fragment, rows
+  // 2 tig and 2 tig + 1 of column g of each 8-key step
+  const float* qa = Qs + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 4 * (lane >> 4);
+  const float* kb = Ks + ((lane & 7) + 8 * (lane >> 4)) * ld + 4 * ((lane >> 3) & 1);
+  const float* vb = Vs + 2 * tig * ld + g;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * kF32BK;
+    const bool hidden = wq0 >= S || (causal && k0 > wq0 + 15) ||
+                        (window > 0 && k0 + kF32BK - 1 <= wq0 - window);
+    float s[8][4];   // s[j][e]: row g + 8 (e >> 1), key k0 + 8 j + 2 tig + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if (!hidden) {
+      // S = Q K^T, 8 deep a step
+#pragma unroll 2
+      for (int kk = 0; kk < nk; ++kk) {
+        uint32_t a[4], a_hi[4], a_lo[4];
+        ldsm_x4(a, qa + 8 * kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), a_hi[i], a_lo[i]);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4], b_hi[4], b_lo[4];
+          ldsm_x4(b, kb + 16 * np * ld + 8 * kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(b[i]), b_hi[i], b_lo[i]);
+          mma_split(s[2 * np], a_hi, a_lo, b_hi[0], b_hi[1], b_lo[0], b_lo[1]);
+          mma_split(s[2 * np + 1], a_hi, a_lo, b_hi[2], b_hi[3], b_lo[2], b_lo[3]);
+        }
+      }
+    }
+
+    // this tile's V has landed and every warp is done with its K: the next
+    // K comes in while the softmax and P V run
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < kt_hi) load_tile_f32(Ks, kh, k0 + kF32BK, S, d, ld, tc, vec);
+    cp_async_commit();
+
+    if (!hidden) {
+      // raw scores, the mask only where the tile straddles its edges
+      const bool full = k0 + kF32BK <= S && (!causal || k0 + kF32BK - 1 <= wq0) &&
+                        (window <= 0 || k0 > wq0 + 15 - window);
+      uint32_t hid = 0;   // bit 4 j + e: s[j][e] is masked
+      if (!full) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
+            const int qpos = wq0 + g + 8 * (e >> 1);
+            const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            if (!ok) {
+              s[j][e] = kNegInf;
+              hid |= 1u << (4 * j + e);
+            }
+          }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      float corr[2], ms[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        corr[h] = ex2((m[h] - m_new) * scale_log2);
+        m[h] = m_new;
+        ms[h] = m_new * scale_log2;
+      }
+      // p = 2^(s scale log2(e) - m scale log2(e)), zeroed where masked
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = ex2(fmaf(s[j][e], scale_log2, -ms[e >> 1]));
+      if (hid) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if ((hid >> (4 * j + e)) & 1u) s[j][e] = 0.f;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rs[e >> 1] += s[j][e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = corr[h] * l[h] + rs[h];
+#pragma unroll
+      for (int n = 0; n < NKMAX; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+
+      // O += P V, one 8-key step per score n-tile: A column tig is key
+      // 2 tig and column tig + 4 key 2 tig + 1, so the A fragment is
+      // (s[j][0], s[j][2], s[j][1], s[j][3]) and V's rows follow suit
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t p_hi[4], p_lo[4];
+        split_tf32(s[j][0], p_hi[0], p_lo[0]);
+        split_tf32(s[j][2], p_hi[1], p_lo[1]);
+        split_tf32(s[j][1], p_hi[2], p_lo[2]);
+        split_tf32(s[j][3], p_hi[3], p_lo[3]);
+        const float* vr = vb + 8 * j * ld;
+#pragma unroll
+        for (int n = 0; n < NKMAX; ++n) {   // n >= nk repeats the last tile, unwritten
+          const int col = 8 * min(n, nk - 1);
+          uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
+          split_tf32(vr[col], b_hi0, b_lo0);
+          split_tf32(vr[ld + col], b_hi1, b_lo1);
+          mma_split(o[n], p_hi, p_lo, b_hi0, b_hi1, b_lo0, b_lo1);
+        }
+      }
+    }
+
+    // the next K has landed and every warp is done with this V
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < kt_hi) load_tile_f32(Vs, vh, k0 + kF32BK, S, d, ld, tc, vec);
+    cp_async_commit();
+  }
+
+  // row sums over the quad; then out = acc / max(l, 1e-30), or this split's
+  // acc, m and l
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+  if (splits == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wq0 + g + 8 * h;
+      if (row >= S) continue;
+      const float denom = fmaxf(l[h], 1e-30f);
+      float* orow = out + (static_cast<size_t>(bh) * S + row) * d;
+#pragma unroll
+      for (int n = 0; n < NKMAX; ++n) {
+        const int col = 8 * n + 2 * tig;
+        if (n >= nk || col >= d) continue;
+        const float x0 = o[n][2 * h] / denom, x1 = o[n][2 * h + 1] / denom;
+        if (col + 1 < d && (d & 1) == 0) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+        } else {
+          orow[col] = x0;
+          if (col + 1 < d) orow[col + 1] = x1;
+        }
+      }
+    }
+    return;
+  }
+
+  // split-KV: this block's acc (over Q's tile) and (m, l) (over K's) in
+  // shared memory; after the cluster's barrier each block merges its slice
+  // of the 64 rows from all the cluster's blocks,
+  //   out = sum_i w_i acc_i / max(sum_i w_i l_i, 1e-30),
+  //   w_i = 2^((m_i - max_i m_i) scale log2(e)),
+  // and waits at a second barrier until no block reads its shared memory
+  float* acc_s = Qs;   // [64][ld]
+  float* ml_s = Ks;    // [64][2]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + g + 8 * h;
+#pragma unroll
+    for (int n = 0; n < NKMAX; ++n) {
+      if (n >= nk) continue;
+      acc_s[r * ld + 8 * n + 2 * tig] = o[n][2 * h];
+      acc_s[r * ld + 8 * n + 2 * tig + 1] = o[n][2 * h + 1];
+    }
+    if (tig == 0) {
+      ml_s[2 * r] = m[h];
+      ml_s[2 * r + 1] = l[h];
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int r0 = split * kF32BQ / splits, r1 = (split + 1) * kF32BQ / splits;
+  for (int i = threadIdx.x; i < (r1 - r0) * d; i += kF32Threads) {
+    const int r = r0 + i / d, col = i - (i / d) * d;
+    if (q0 + r >= S) continue;
+    float mx = kNegInf;
+    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, cluster.map_shared_rank(ml_s, sp)[2 * r]);
+    float den = 0.f, acc = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* peer_ml = cluster.map_shared_rank(ml_s, sp);
+      const float w = ex2((peer_ml[2 * r] - mx) * scale_log2);
+      den += w * peer_ml[2 * r + 1];
+      acc += w * cluster.map_shared_rank(acc_s, sp)[r * ld + col];
+    }
+    out[(static_cast<size_t>(bh) * S + q0 + r) * d + col] = acc / fmaxf(den, 1e-30f);
+  }
+  cluster.sync();
+}
+
+template <int NKMAX>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int S, int d,
+               int causal, int window, float scale, int splits, cudaStream_t st) {
+  // the dynamic shared memory limit, raised once per device to this
+  // instantiation's widest head (an attribute call on every launch costs the
+  // short cases more than their kernels)
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !raised[dev]) {
+    err = cudaFuncSetAttribute(flash_f32_kernel<NKMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(f32_smem_bytes(8 * NKMAX)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) raised[dev] = true;
+  }
+  const int n_qt = (S + kF32BQ - 1) / kF32BQ;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  const int vec = d % 4 == 0 && ptrs % 16 == 0;
+  const float scale_log2 = static_cast<float>(scale * 1.4426950408889634);   // log2(e)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh * n_qt * splits);
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = f32_smem_bytes(d);
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];   // a query tile's splits: one cluster
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, flash_f32_kernel<NKMAX>, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), bh, S, d, causal, window,
+      scale_log2, n_qt, splits, vec));
+}
+
 }  // namespace
 
 extern "C" {
@@ -589,16 +865,25 @@ const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, out: (bh, S, d) f32, contiguous; 0 < d <= 128;
-// bh * ceil(S / 64) < 2^31; window <= 0 means none.
+// q, k, v, out: (bh, S, d) f32, contiguous; 0 < d <= 128; 0 < splits <= 8
+// (a cluster's portable size); bh * ceil(S / 64) * splits < 2^31; window
+// <= 0 means none.
 int flash_attention_forward(const void* q, const void* k, const void* v, void* out, int bh,
-                            int S, int d, int causal, int window, float scale,
+                            int S, int d, int causal, int window, float scale, int splits,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d > kMaxD || bh <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return round4(d) > 64 ? launch_f32<2>(q, k, v, out, bh, S, d, causal, window, scale, st)
-                        : launch_f32<1>(q, k, v, out, bh, S, d, causal, window, scale, st);
+  if (d <= 0 || d > kMaxD || bh <= 0 || S <= 0 || splits <= 0 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((d + 31) / 32) {
+    case 1: return launch_f32<4>(q, k, v, out, bh, S, d, causal, window, scale, splits, st);
+    case 2: return launch_f32<8>(q, k, v, out, bh, S, d, causal, window, scale, splits, st);
+    case 3: return launch_f32<12>(q, k, v, out, bh, S, d, causal, window, scale, splits, st);
+    default: return launch_f32<16>(q, k, v, out, bh, S, d, causal, window, scale, splits, st);
+  }
 }
+
+// the dynamic shared memory flash_attention_forward asks for at width d
+int flash_attention_f32_smem_bytes(int d) { return static_cast<int>(f32_smem_bytes(d)); }
 
 // the dynamic shared memory flash_attention_forward_tc asks for at width d
 int flash_attention_tc_smem_bytes(int d) {

@@ -1,7 +1,7 @@
 """Wall times of the quickstart main path on one CUDA card, repeated.
 
     python3 src/repro_torch/tools/time_main_path.py [--src DIR] [--repeat 8]
-        [--path-only | --serving]
+        [--path-only | --serving | --flash-f32]
 
 Builds the graphs of ``chip_smoke.py``'s main path
 (``web_crawl_like(512, 13, 16, 3)`` with random weights as CSR+CSC, and
@@ -31,6 +31,11 @@ kernel's tiles (``chip_smoke.intersect_work``), profiles ``tc_count`` on both
 graphs, and times ``spmm_bsr`` on phase 10's block-sparse graph (F = 128;
 f32, bf16 and both mixed dtypes).  All of it takes ``chip_smoke.py`` from
 this checkout.
+
+``--flash-f32`` times only the tree's f32 ``flash_attention_bhsd`` at
+``chip_smoke.py``'s timed 17f cases (``FLASH_F32_TIMED``, the same inputs),
+each beside ``scaled_dot_product_attention`` in f32, in turns, ``--repeat``
+times (CUDA events, 17f's reps), and builds no graph.
 
 ``--serving`` times the batched serving runs instead: on the same web
 graph, from phase 3's source and 9h's seven seeded vertices
@@ -63,6 +68,8 @@ def main() -> int:
                     help="time the main path only")
     ap.add_argument("--serving", action="store_true",
                     help="time the batched serving runs instead of the main path")
+    ap.add_argument("--flash-f32", action="store_true",
+                    help="time the f32 flash-attention cases of chip_smoke's 17f instead")
     args = ap.parse_args()
 
     import torch
@@ -85,6 +92,8 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    if args.flash_f32:
+        return flash_f32_times(torch, np, cs, args, card)
     build.load("graph_ops")
     src, dst, n = gen_mod.web_crawl_like(args.communities, 13, 16, 3, seed=0)
     w = gen_mod.random_weights(len(src), seed=1)
@@ -159,6 +168,36 @@ def main() -> int:
     kernel_cases(torch, cs, gk, fr, g, gsym)
     intersect_cases(torch, cs, gk, gen_mod, gsym)
     spmm_cases(torch, cs, gen_mod)
+    return 0
+
+
+def flash_f32_times(torch, np, cs, args, card) -> int:
+    """The tree's f32 flash attention at 17f's timed cases beside SDPA in
+    f32, kernel and library in turns, ``--repeat`` times each."""
+    import torch.nn.functional as F
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    rows = {}
+    for name, bh, s, d, window, causal in cs.FLASH_F32_TIMED:
+        assert causal and (window is None or window >= s), "SDPA's is_causal mask differs"
+        if name.startswith("(a)"):
+            (q, k, v), _, _ = kernels_bench.kernel_inputs("cuda", np.random.default_rng(0))
+        else:
+            q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda") for _ in range(3))
+        q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+        pairs = cs.attention_pairs(s, window, causal) * bh
+        reps = cs.FLASH_F32_REPS_SHORT if pairs < cs.FLASH_F32_SHORT_PAIRS else 5
+        row = rows[name] = dict(ms=[], library_ms=[], reps=reps)
+        for _ in range(args.repeat):
+            row["ms"].append(cs.cuda_ms(torch, lambda: fk.flash_attention_bhsd(
+                q, k, v, causal=causal, window=window), reps))
+            row["library_ms"].append(cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), reps))
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    print(json.dumps({"src": args.src, "card": card, "flash_f32": rows}), flush=True)
     return 0
 
 

@@ -14,6 +14,7 @@ the embedding bag; bf16 results may differ by one rounding of the output.
 ``to_bsr`` is held bitwise: it is the same numpy code.
 """
 
+import functools
 import importlib.util
 import json
 import math
@@ -45,6 +46,7 @@ from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag as t_e
 from repro_torch.kernels.embedding_bag.ops import embedding_bag as t_eb_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as t_fa_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bhsd as t_fa  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import MAX_SPLITS, kv_splits, split_ranges  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention as t_fa_ops  # noqa: E402
 from repro_torch.kernels.spmm_bsr import ref as t_spmm_ref  # noqa: E402
 from repro_torch.kernels.spmm_bsr.ops import BsrMatrix as TBsrMatrix  # noqa: E402
@@ -178,6 +180,166 @@ def test_tensor_core_arithmetic_matches_jax_oracle(bh, s, d, causal, window, bq,
     rms = np.sqrt(np.mean(want.astype(np.float64) ** 2))
     assert got.dtype == torch.bfloat16 and got.shape == (bh, s, d)
     assert (err <= 8e-3 * np.abs(want) + 1e-3 * rms).all(), float(err.max())
+
+
+PERM8 = (0, 2, 4, 6, 1, 3, 5, 7)   # the key that column c of an 8-key P.V step stands for
+
+
+def _tf32(x):
+    """``tf32`` of ``csrc/flash_attention.cu``: half a TF32 ulp added to the
+    bits, the 13 below TF32's mantissa cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _truncated(x):
+    """x truncated to TF32, as the kernel's AND does: the low 13 bits cleared."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_split(a, b):
+    """a @ b as ``mma_split`` computes it: hi = tf32(x) and lo = x - hi
+    truncated to TF32 of both operands, lo.hi + hi.lo + hi.hi (each product
+    exact in f32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _truncated(a - a_hi), _truncated(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _f32_kernel_model(q, k, v, causal, window, splits):
+    """The f32 kernel's arithmetic (``flash_f32_kernel`` in
+    ``csrc/flash_attention.cu``, its cluster merge included) in plain
+    torch: each query tile's split shares of ``split_ranges`` in 64-key
+    tiles (K and V zero past S); raw scores and P V in split TF32
+    (``_mm_split``), P V over each 8-key step in the kernel's key order
+    (column c is key PERM8[c]); the online softmax on the raw max with
+    p = 2^(s c - m c), c = scale * log2(e), rounded once as the kernel's
+    FMA; each share's (m, l, acc) merged with weights 2^((m_i - max m) c)
+    and out = acc / max(l, 1e-30)."""
+    bh, s, d = q.shape
+    scale = float(np.float32(1.0 / math.sqrt(d)))       # as ctypes passes it
+    c = float(np.float32(scale * math.log2(math.e)))
+    s_pad = -(-s // 64) * 64
+    qf, kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, s_pad - s)) for t in (q, k, v))
+    order = torch.tensor([8 * (i // 8) + PERM8[i % 8] for i in range(64)])
+    out = torch.empty((bh, s, d))
+    for t, shares in enumerate(split_ranges(s, causal, window, splits)):
+        q0 = 64 * t
+        qpos = torch.arange(q0, q0 + 64)[:, None]
+        parts = []
+        for lo, hi in shares:
+            m = torch.full((bh, 64, 1), t_fa_ref.NEG_INF)
+            l = torch.zeros((bh, 64, 1))
+            acc = torch.zeros((bh, 64, d))
+            for k0 in range(64 * lo, 64 * hi, 64):
+                kb, vb = kf[:, k0:k0 + 64], vf[:, k0:k0 + 64]
+                mask = t_fa_ref._mask(qpos, torch.arange(k0, k0 + 64)[None, :], s, causal,
+                                      window)
+                raw = torch.where(mask, _mm_split(qf[:, q0:q0 + 64], kb.transpose(1, 2)),
+                                  t_fa_ref.NEG_INF)
+                m_new = torch.maximum(m, raw.amax(-1, keepdim=True))
+                arg = (raw.double() * c - (m_new * c).double()).float()
+                p = torch.where(mask, torch.exp2(arg), 0.0)
+                corr = torch.exp2((m - m_new) * c)
+                l = corr * l + p.sum(-1, keepdim=True)
+                acc = corr * acc + _mm_split(p[..., order], vb[:, order])
+                m = m_new
+            parts.append((m, l, acc))
+        ms, ls, accs = (torch.stack(x) for x in zip(*parts))
+        w = torch.exp2((ms - ms.amax(0)) * c)
+        tile = (w * accs).sum(0) / (w * ls).sum(0).clamp_min(1e-30)
+        out[:, q0:q0 + 64] = tile[:, :min(64, s - q0)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_f32(bh, s, d, causal, window, bq, bk):
+    """The f32 inputs of ``test_flash_attention_matches_jax``'s case and the
+    JAX package's kernel (interpret mode) and oracle on them."""
+    rng = np.random.default_rng(bh * 1000 + s + d)
+    q, k, v = (rng.normal(size=(bh, s, d)).astype(np.float32) for _ in range(3))
+    kw = dict(causal=causal, window=window)
+    kernel = f32(j_fa(J(q), J(k), J(v), block_q=bq, block_k=bk, interpret=True, **kw))
+    return (q, k, v), kernel, f32(j_attn_ref(J(q), J(k), J(v), **kw))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("bh,s,d,causal,window,bq,bk", FLASH_CASES)
+def test_f32_kernel_arithmetic_matches_jax(splits, bh, s, d, causal, window, bq, bk):
+    """Split TF32 in both products, the permuted keys of P V and the merge
+    of 1, 2 or 5 key-range splits (5 leaves some shares empty) keep the f32
+    kernel within the reference's 2e-5 of its kernel and its oracle."""
+    (q, k, v), kernel, oracle = _jax_f32(bh, s, d, causal, window, bq, bk)
+    got = _f32_kernel_model(T(q), T(k), T(v), causal, window, splits)
+    assert got.dtype == torch.float32 and got.shape == (bh, s, d)
+    close(got, kernel, TOL["float32"])
+    close(got, oracle, TOL["float32"])
+
+
+def test_f32_p_accumulator_fragment_is_the_pv_a_fragment():
+    """mma.m16n8k8 TF32: lane (g, tig)'s accumulator holds (g, 2 tig),
+    (g, 2 tig + 1), (g + 8, 2 tig), (g + 8, 2 tig + 1); its A fragment is
+    (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4) and its B
+    fragment rows tig and tig + 4.  With column c standing for key
+    PERM8[c], the kernel's (c0, c2, c1, c3) is the A fragment and its V
+    rows 2 tig, 2 tig + 1 are B's."""
+    assert sorted(PERM8) == list(range(8))
+    for lane in range(32):
+        g, tig = lane >> 2, lane & 3
+        acc = [(g, 2 * tig), (g, 2 * tig + 1), (g + 8, 2 * tig), (g + 8, 2 * tig + 1)]
+        a = [(g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)]
+        assert [acc[i] for i in (0, 2, 1, 3)] == [(r, PERM8[col]) for r, col in a]
+        assert (PERM8[tig], PERM8[tig + 4]) == (2 * tig, 2 * tig + 1)
+
+
+def test_tf32_split_keeps_f32_products_to_2_pow_minus_20():
+    """hi + lo carries x to 2^-21; the three products
+    of _mm_split reach f64's product to 2^-20 of |a| |b|, where one TF32
+    product misses by about 2^-11."""
+    rng = np.random.default_rng(27)
+    a, b = (T(rng.normal(size=(64, 64)).astype(np.float32)) for _ in range(2))
+    hi = _tf32(a)
+    assert bool(((hi + _truncated(a - hi) - a).abs() <= 2.0**-21 * a.abs()).all())
+    exact = a.double() @ b.double()
+    scale = a.abs().double() @ b.abs().double()
+    assert float(((_mm_split(a, b).double() - exact).abs() / scale).max()) <= 2.0**-20
+    assert float(((_tf32(a) @ _tf32(b)).double() - exact).abs().div(scale).max()) > 2.0**-14
+
+
+# (bh, S, causal, window): kernels_bench's f32 row, train_lm's model_100m,
+# danube's train_4k, FLASH_SMALL's two, and edges of the chooser (1 x 1024:
+# 16 blocks would want 9 splits, a cluster holds 8)
+SPLIT_CASES = [(2, 256, True, None), (128, 256, True, None), (32, 4096, True, 4096),
+               (4, 200, True, 48), (2, 300, False, None), (1, 64, True, None),
+               (1, 1000, True, 100), (3, 96, True, 32), (1, 3000, False, 300),
+               (33, 256, True, None), (32, 257, True, None), (1, 8192, True, None),
+               (1, 1024, False, None)]
+
+
+@pytest.mark.parametrize("bh,s,causal,window", SPLIT_CASES)
+def test_f32_kv_splits_cover_each_visible_key_tile_once(bh, s, causal, window):
+    """kv_splits' count and every other count's shares: each query tile's
+    shares hold each key tile with a visible key once, in order, and no
+    other; the count is never above the most tiles a query tile sees, is 1
+    once bh x ceil(S / 64) blocks fill the card's 132 SMs, and fills it
+    otherwise unless the tiles or a cluster's 8 blocks run out."""
+    n_qt = -(-s // 64)
+    chosen = kv_splits(bh, s, causal, window)
+    kpos = torch.arange(n_qt * 64)[None, :]
+    want = []   # per query tile, the key tiles holding a key one of its queries sees
+    for q0 in range(0, s, 64):
+        qpos = torch.arange(q0, min(q0 + 64, s))[:, None]
+        seen = t_fa_ref._mask(qpos, kpos, s, causal, window).any(0)
+        want.append(torch.nonzero(seen.view(n_qt, 64).any(1)).flatten().tolist())
+    for splits in sorted({1, 2, 3, 7, chosen}):
+        shares = split_ranges(s, causal, window, splits)
+        assert [len(x) for x in shares] == [splits] * n_qt
+        assert [[kt for lo, hi in x for kt in range(lo, hi)] for x in shares] == want
+    most = max(len(x) for x in want)
+    assert 1 <= chosen <= min(most, MAX_SPLITS)
+    if bh * n_qt >= 132:
+        assert chosen == 1
+    else:
+        assert bh * n_qt * chosen >= 132 or chosen == min(most, MAX_SPLITS)
 
 
 def test_tensor_core_launch_count_is_reset_and_left_alone_on_the_cpu():
