@@ -18,8 +18,16 @@ non-zero exit before its last line:
    the toolkit has ``cuobjdump``, the count of ``HMMA`` (tensor-core)
    instructions in its SASS (none is a failure);
 3. graph: ``web_crawl_like(512, 13, 16, 3)`` with random weights (about
-   4.19 M vertices and 57 M edges), built as CSR+CSC and symmetrized
-   (CSR+CSC, for cc and pagerank) on the card;
+   4.19 M vertices and 57 M edges), generated on the host and built by
+   ``from_coo`` on the card as CSR+CSC and symmetrized (CSR+CSC, for cc
+   and pagerank), each stage's seconds and the symmetrized build's peak
+   device memory printed; at full size n, m, n_pad, m_pad and the
+   symmetrized m must be those the numpy build gave (kron's likewise in
+   phase 7); 3b:
+   ``from_coo`` and ``oriented_adjacency`` on the card against the same
+   calls on the CPU, every array bitwise, on the quickstart graph,
+   ``web_crawl_like(64, 13, 16, 3)`` (plain, symmetrized, CSR+CSC) and a
+   duplicate-heavy graph weighted with +-0.0, NaNs and infinities;
 4. kernels: each kernel against its plain torch version on the card, at
    the main path's shapes — bitwise except float add: push, relax and
    pull of each kind, then the shapes the main path gives edge_relax
@@ -976,6 +984,102 @@ def compare_runs(torch, name, a, b, tol=None, dense_m=None):
     check(da == db, f"{name}: RunStats differ: {da} vs {db}")
 
 
+# ---- phase 3: the graph built on the card ----------------------------------
+
+# The sizes the numpy build gave the full inputs (512 communities, kron
+# scale 20), which the build on the card must reproduce: (n, m, n_pad,
+# m_pad, symmetrized m)
+FULL_WEB_SIZES = (4_194_304, 56_702_470, 4_194_816, 56_702_976, 104_472_702)
+FULL_KRON_SIZES = (1_048_576, 16_085_580, None, None, 31_404_412)
+
+
+def check_sizes(label, g, gsym, want):
+    got = (g.n, g.m, g.n_pad, g.m_pad, gsym.m)
+    check(all(w is None or a == w for a, w in zip(got, want)),
+          f"{label}: built sizes {got} differ from {want}")
+
+
+def build_pair(torch, tc, label, src, dst, n, w, t_gen):
+    """``from_coo`` on the card: the weighted CSR+CSC, then the symmetrized
+    unweighted CSR+CSC, each stage's seconds printed (the device
+    synchronized at each stage's end) with the symmetrized build's peak
+    device memory."""
+    split, sym = {}, {}
+    t0 = time.perf_counter()
+    g = tc.from_coo(src, dst, n, w, build_csc=True, timings=split)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gsym = tc.from_coo(src, dst, n, symmetrize=True, build_csc=True, timings=sym)
+    peak = torch.cuda.max_memory_allocated() - held
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"{label} build on the card: {t_build} s after generate {t_gen} s: "
+          f"copy {split['copy']}, dedup {split['dedup']}, CSR {split['csr']}, "
+          f"CSC {split['csc']}; symmetrized {sum(sym.values())} "
+          f"({json.dumps(sym)}), its peak device bytes {peak} above the "
+          f"{held} held", flush=True)
+    return g, gsym
+
+
+def signed_zero_nan_coo(np, n=512, m=1 << 20, seed=3):
+    """Duplicate-heavy COO whose weights are +-0.0, NaNs of three bit
+    patterns, +-inf and a few finite values: the dedup's weight order at a
+    size where the card's sort runs its radix path."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0x80000000, 0x00000000, 0x7FC00000, 0x7FC00001, 0xFFC00000,
+                     0x7F800000, 0xFF800000, 0x3F800000, 0x40000000],
+                    np.uint32).view(np.float32)
+    return (rng.integers(0, n, m), rng.integers(0, n, m), n,
+            pool[rng.integers(0, pool.size, m)])
+
+
+def build_check(torch, np, tc, gen_mod):
+    """``from_coo`` and ``oriented_adjacency`` on the card against the same
+    calls on the CPU (which the CPU tests hold bitwise against the JAX
+    package's numpy build): every array bitwise equal."""
+    t0 = time.perf_counter()
+    from repro_torch.core.algorithms import tc as tri
+    from repro_torch.core.graph import _ARRAYS
+    quick = gen_mod.web_crawl_like(16, 5, 8, 2, seed=0)
+    quick_w = gen_mod.random_weights(len(quick[0]), seed=1)
+    web64 = gen_mod.web_crawl_like(64, 13, 16, 3, seed=0)
+    web64_w = gen_mod.random_weights(len(web64[0]), seed=1)
+    special = signed_zero_nan_coo(np)
+    cases = [
+        ("quickstart csr+csc", quick[:2], quick_w, dict(build_csc=True)),
+        ("quickstart symmetrized", quick[:2], None, dict(symmetrize=True)),
+        ("quickstart no dedup", quick[:2], quick_w, dict(dedup=False, build_csc=True)),
+        ("web(64) plain", web64[:2], web64_w, {}),
+        ("web(64) symmetrized", web64[:2], None, dict(symmetrize=True)),
+        ("web(64) csr+csc", web64[:2], web64_w, dict(build_csc=True)),
+        ("+-0.0/NaN csr+csc", special[:2], special[3], dict(build_csc=True)),
+        ("+-0.0/NaN symmetrized", special[:2], special[3], dict(symmetrize=True)),
+    ]
+    ns = {"quickstart": quick[2], "web(64)": web64[2], "+-0.0/NaN": special[2]}
+    for name, (src, dst), w, opts in cases:
+        n = ns[name.split()[0]]
+        built = {dev: tc.from_coo(src, dst, n, w, device=dev, **opts)
+                 for dev in ("cuda", "cpu")}
+        a, b = built["cuda"], built["cpu"]
+        check((a.n, a.m, a.n_pad, a.m_pad) == (b.n, b.m, b.n_pad, b.m_pad),
+              f"build {name}: sizes differ card/cpu")
+        for f in _ARRAYS:
+            x, y = getattr(a, f), getattr(b, f)
+            check((x is None) == (y is None), f"build {name}: {f} on one side only")
+            if x is not None:
+                check(x.dtype == y.dtype and torch.equal(bits(torch, x).cpu(),
+                                                         bits(torch, y)),
+                      f"build {name}: {f} differs card/cpu")
+        if opts.get("symmetrize"):
+            for f, x, y in zip(("adj", "osrc", "odst"), tri.oriented_adjacency(a),
+                               tri.oriented_adjacency(b)):
+                check(torch.equal(x.cpu(), y), f"oriented {name}: {f} differs card/cpu")
+        print(f"  build {name}: n={a.n} m={a.m} m_pad={a.m_pad}, card == cpu bitwise",
+              flush=True)
+    print(f"3b: from_coo and oriented_adjacency, card == cpu bitwise on "
+          f"{len(cases)} builds in {time.perf_counter() - t0} s", flush=True)
+
+
 def small_check(torch, np, tc, algos, gen_mod):
     """The quickstart graph on the card (kernels) against the plain version
     on the CPU, which the CPU tests hold against the JAX package."""
@@ -1019,7 +1123,11 @@ def oriented_chunks(torch, tri, g):
     """The oriented adjacency of ``g`` on the card, its edge list padded to
     whole chunks, and each chunk's candidate mass (row lengths of its
     sources)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     adj, osrc, odst = tri.oriented_adjacency(g)
+    torch.cuda.synchronize()
+    print(f"  oriented_adjacency: {time.perf_counter() - t0} s on the card", flush=True)
     ne = osrc.shape[0]
     pad = -ne % INTERSECT_CHUNK
     fill = torch.full((pad,), g.sentinel, dtype=torch.int32, device=g.device)
@@ -1821,7 +1929,7 @@ def suites_phase(torch, np, gk, gen_mod, benches, web, kron, refs):
           "granularity: the block sizes disagree on distances or rounds")
     print(f"9e granularity on web_crawl_like({GRANULARITY_COMMUNITIES}, 13, 16, 3) "
           f"(n={coo[2]}, m={len(coo[0])}; cut from 512 communities in depth only): "
-          f"{len(rows)} rows in {time.perf_counter() - t0} s (three host builds)",
+          f"{len(rows)} rows in {time.perf_counter() - t0} s (three builds)",
           flush=True)
     launches = gk.launch_counts()
     print(f"9e launches (cuda): {json.dumps(launches)}; {compared} rows equal to the "
@@ -5021,22 +5129,22 @@ def main() -> int:
           f"{build.build_seconds} s) into {build.BUILD_DIR}", flush=True)
     tc_kernel_report(build)
 
-    # 3. the graph, built on the host and copied to the card once
+    # 3. the graph: COO arrays generated on the host, copied to the card
+    # once and built there
     t0 = time.perf_counter()
     src, dst, n = gen_mod.web_crawl_like(args.communities, 13, 16, 3, seed=0)
     w = gen_mod.random_weights(len(src), seed=1)
     t_gen = time.perf_counter() - t0
-    g = tc.from_coo(src, dst, n, w, build_csc=True)
-    t_g = time.perf_counter() - t0 - t_gen
-    gsym = tc.from_coo(src, dst, n, symmetrize=True, build_csc=True)
-    torch.cuda.synchronize()
-    t_host = time.perf_counter() - t0
+    g, gsym = build_pair(torch, tc, "graph", src, dst, n, w, t_gen)
     source = int(np.argmax(np.bincount(src, minlength=n)))
     del src, dst, w
     check(g.device.type == "cuda", "from_coo did not place the graph on the card")
     print(f"graph: n={g.n} m={g.m} n_pad={g.n_pad} m_pad={g.m_pad} sym m={gsym.m} "
-          f"source={source} host build {t_host} s (generate {t_gen}, "
-          f"csr+csc {t_g}, symmetrized {t_host - t_gen - t_g})", flush=True)
+          f"source={source}", flush=True)
+    if args.communities == 512:
+        check_sizes("web", g, gsym, FULL_WEB_SIZES)
+    # 3b. the build on the card against the same build on the CPU
+    build_check(torch, np, tc, gen_mod)
 
     # 4. kernels against their plain versions
     rng = torch.Generator(device="cuda").manual_seed(11)
@@ -5095,15 +5203,19 @@ def main() -> int:
     ksrc, kdst, kn = gen_mod.table3_suite(args.kron_scale - 10)["kron30"]()
     t_gen = time.perf_counter() - t0
     kweights = gen_mod.random_weights(len(ksrc), seed=7)
-    kg = tc.from_coo(ksrc, kdst, kn, kweights, build_csc=True)
+    t_gen = time.perf_counter() - t0
+    kg, kgsym = build_pair(torch, tc, "kron", ksrc, kdst, kn, kweights, t_gen)
+    t1 = time.perf_counter()
     kg_unw = tc.from_coo(ksrc, kdst, kn, build_csc=True)
-    kgsym = tc.from_coo(ksrc, kdst, kn, symmetrize=True, build_csc=True)
     torch.cuda.synchronize()
+    t_unw = time.perf_counter() - t1
+    ksource = int(np.argmax(kg.out_deg[:kn].cpu().numpy()))
     del ksrc, kdst, kweights
-    ksource = int(np.argmax(np.bincount(kg.src_idx[: kg.m].cpu().numpy(), minlength=kn)))
     print(f"kron: scale={args.kron_scale} n={kg.n} m={kg.m} sym m={kgsym.m} "
-          f"source={ksource} host build {time.perf_counter() - t0} s "
-          f"(generate {t_gen})", flush=True)
+          f"source={ksource}; unweighted CSR+CSC {t_unw} s; "
+          f"{time.perf_counter() - t0} s in all", flush=True)
+    if args.kron_scale == 20:
+        check_sizes("kron", kg, kgsym, FULL_KRON_SIZES)
     t0 = time.perf_counter()
     inter_rows = []
     for label, og in (("web", gsym), ("kron", kgsym)):
@@ -5119,7 +5231,7 @@ def main() -> int:
         del case, oriented  # they hold an oriented adjacency on the card
         torch.cuda.empty_cache()
     print(f"intersect cases: {time.perf_counter() - t0} s (two oriented "
-          f"adjacencies built on the host)", flush=True)
+          f"adjacencies built on the card)", flush=True)
 
     # 8. the paper suite's new algorithms on the web graph
     small_suite_check(torch, np, tc, suite, gen_mod)

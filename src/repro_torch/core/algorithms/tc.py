@@ -14,7 +14,6 @@ substrates and at every (placement, ndev).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import operators as ops
@@ -23,34 +22,35 @@ from ..graph import round_up
 
 
 def oriented_adjacency(g):
-    """Host-side: the (n_pad, dmax) sorted oriented adjacency (sentinel-
-    padded) plus the oriented edge list, built with numpy exactly as the
-    reference builds it and put on the graph's device.  Graph must be
-    symmetric.  Reads ``src_idx``/``col_idx``/``out_deg`` back once."""
-    src_all = g.src_idx.cpu().numpy()
-    dst_all = g.col_idx.cpu().numpy()
-    real = src_all != g.sentinel
-    src = src_all[real].astype(np.int64)
-    dst = dst_all[real].astype(np.int64)
-    deg = g.out_deg.cpu().numpy()
+    """The (n_pad, dmax) sorted oriented adjacency (sentinel-padded) plus
+    the oriented edge list, built in torch on the graph's device, bitwise
+    the reference's numpy build.  Graph must be symmetric.  The host
+    fetches two scalars, the list's length and ``dmax``.
+
+    The real edges are the flat views' non-sentinel slots (a
+    ``ShardedGraph`` interleaves its padding); one stable sort by (src,
+    dst) makes the list canonical whatever the input's order."""
+    src = g.src_idx.reshape(-1).long()
+    dst = g.col_idx.reshape(-1).long()
+    n_pad, sentinel = g.n_pad, g.sentinel
     # rank = (degree, id) lexicographic
-    rank = deg.astype(np.int64) * (g.n_pad + 1) + np.arange(g.n_pad)
-    keep = rank[src] < rank[dst]
-    osrc, odst = src[keep], dst[keep]
-    odeg = np.bincount(osrc, minlength=g.n_pad)
-    dmax = max(int(odeg.max()), 1)
-    adj = np.full((g.n_pad, dmax), g.sentinel, dtype=np.int32)
-    order = np.lexsort((odst, osrc))
+    rank = g.out_deg.long() * (n_pad + 1) + torch.arange(n_pad, device=g.device)
+    keep = (src != sentinel) & (rank[src] < rank[dst])
+    odeg = torch.zeros(n_pad, dtype=torch.int64, device=g.device).index_add_(
+        0, src, keep.long())
+    ne, dmax = torch.stack([odeg.sum(), odeg.max()]).tolist()
+    dmax = max(dmax, 1)
+    kept = torch.nonzero_static(keep, size=ne).squeeze(1)
+    osrc, odst = src[kept], dst[kept]
+    order = torch.sort(osrc * n_pad + odst, stable=True).indices
     osrc, odst = osrc[order], odst[order]
-    starts = np.zeros(g.n_pad + 1, dtype=np.int64)
-    np.cumsum(odeg, out=starts[1:])
-    idx_in_row = np.arange(osrc.shape[0]) - starts[osrc]
-    adj[osrc, idx_in_row] = odst
-    adj.sort(axis=1)  # sentinel (large) sorts to the end; rows stay sorted
-    dev = g.device
-    return (torch.from_numpy(adj).to(dev),
-            torch.from_numpy(osrc.astype(np.int32)).to(dev),
-            torch.from_numpy(odst.astype(np.int32)).to(dev))
+    starts = torch.cumsum(odeg, 0) - odeg
+    idx_in_row = torch.arange(ne, device=g.device) - starts[osrc]
+    adj = torch.full((n_pad * dmax,), sentinel, dtype=torch.int32, device=g.device)
+    adj[osrc * dmax + idx_in_row] = odst.int()
+    # sentinel (large) sorts to the end; rows stay sorted
+    adj = torch.sort(adj.view(n_pad, dmax), dim=1).values
+    return adj, osrc.int(), odst.int()
 
 
 def tc_count(g, edge_chunk: int = 32_768):

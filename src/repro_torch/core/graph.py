@@ -3,8 +3,9 @@
 The same container as ``repro.core.graph``: every array is padded to a
 multiple of ``block_size`` edges / vertices, vertex arrays carry one
 sentinel slot at ``n_pad - 1``, padded edges point at the sentinel (weight
-0), and the CSC mirror is optional.  The host build is numpy, op for op
-the reference's, and the finished arrays are copied to the device once.
+0), and the CSC mirror is optional.  ``from_coo`` copies the COO arrays to
+the device once and builds there in torch, bitwise the reference's numpy
+build.
 
 Index arrays are int32 and weights float32, as in the reference.  Tensors
 land on ``cuda`` unless the caller passes ``device=`` (the tests pass
@@ -14,6 +15,7 @@ land on ``cuda`` unless the caller passes ``device=`` (the tests pass
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -35,14 +37,6 @@ def default_device() -> torch.device:
 
 def _device(device) -> torch.device:
     return default_device() if device is None else torch.device(device)
-
-
-def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
-    if x.shape[0] == size:
-        return x
-    out = np.full((size,) + x.shape[1:], fill, dtype=x.dtype)
-    out[: x.shape[0]] = x
-    return out
 
 
 def set_at(t: torch.Tensor, i: int, value) -> torch.Tensor:
@@ -148,6 +142,43 @@ def from_arrays(arrays: dict, *, n: int, m: int, n_pad: int, m_pad: int,
                  **tensors)
 
 
+def _float_order_key(w: torch.Tensor) -> torch.Tensor:
+    """An int32 key whose integer order is numpy's sort order of the
+    float32 ``w``: -0.0 and +0.0 share a key (numpy treats them as equal and
+    a stable sort keeps them in input order) and every NaN takes one key
+    above +inf (numpy puts NaNs last, in input order)."""
+    bits = w.view(torch.int32)
+    key = torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return key.masked_fill_(torch.isnan(w), 0x7F800001)
+
+
+def _stable_order(key: torch.Tensor) -> torch.Tensor:
+    return torch.sort(key, stable=True).indices
+
+
+def _on_device(a, dtype, dev) -> torch.Tensor:
+    return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(dev)
+
+
+def _csr(s: torch.Tensor, d: torch.Tensor, w: torch.Tensor, n_pad: int,
+         m_pad: int):
+    """The padded CSR of edges already sorted by (s, d): row_ptr, col_idx,
+    src_idx, edge_w and the degrees, as the reference's ``build``."""
+    sentinel = n_pad - 1
+    counts = degrees_from_edges(s, n_pad)
+    set_at(counts, sentinel, 0)
+    rp = torch.zeros(n_pad + 1, dtype=torch.int32, device=s.device)
+    torch.cumsum(counts, 0, dtype=torch.int32, out=rp[1:])
+
+    def pad(x, dtype, fill):
+        out = torch.full((m_pad,), fill, dtype=dtype, device=s.device)
+        out[: x.shape[0]] = x
+        return out
+
+    return (rp, pad(d, torch.int32, sentinel), pad(s, torch.int32, sentinel),
+            pad(w, torch.float32, 0.0), counts)
+
+
 def from_coo(
     src: np.ndarray,
     dst: np.ndarray,
@@ -159,58 +190,86 @@ def from_coo(
     symmetrize: bool = False,
     dedup: bool = True,
     device=None,
+    timings: Optional[dict] = None,
 ) -> Graph:
-    """Build a padded Graph from host COO arrays (numpy), then copy it to
-    ``device`` (``cuda`` by default)."""
+    """Build a padded Graph from host COO arrays (numpy) on ``device``
+    (``cuda`` by default), bitwise the reference's numpy build.
+
+    The arrays are copied to the device once; symmetrizing, the dedup, the
+    sorts, the degrees and the padding run there in torch, and the host
+    fetches scalars only: the ids' range (ids outside [0, n) raise) and
+    ``m``.  Integer sorts are stable, least significant key
+    first, as ``np.lexsort``; the dedup's weight order sorts an integer key
+    of the float's bits (``_float_order_key``), not the float.  A
+    ``timings`` dict gets each stage's seconds ("copy", "dedup", "csr",
+    "csc"), the device synchronized at each stage's end."""
     dev = _device(device)
-    src = np.asarray(src, dtype=np.int64)
-    dst = np.asarray(dst, dtype=np.int64)
+    clock = [time.perf_counter()]
+
+    def stage(name):
+        if timings is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            timings[name] = now - clock[0]
+            clock[0] = now
+
+    src = _on_device(src, np.int64, dev)
+    dst = _on_device(dst, np.int64, dev)
     if weights is None:
-        w = np.ones(src.shape[0], dtype=np.float32)
+        w = torch.ones(src.shape[0], dtype=torch.float32, device=dev)
     else:
-        w = np.asarray(weights, dtype=np.float32)
+        w = _on_device(weights, np.float32, dev)
+    if src.shape[0]:
+        lo, hi = torch.stack([torch.minimum(src.min(), dst.min()),
+                              torch.maximum(src.max(), dst.max())]).tolist()
+        if lo < 0 or hi >= n:
+            raise ValueError(f"vertex ids span [{lo}, {hi}], outside [0, {n})")
+    stage("copy")
 
     if symmetrize:
-        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
-        w = np.concatenate([w, w])
+        src, dst = torch.cat([src, dst]), torch.cat([dst, src])
+        w = torch.cat([w, w])
 
+    n_pad = round_up(n + 1, block_size)
     if dedup:
         # self-loops dropped; duplicate (src, dst) edges keep the MINIMUM
-        # weight, so the result does not depend on input edge order
-        keep = src != dst
-        src, dst, w = src[keep], dst[keep], w[keep]
-        key = src * np.int64(n) + dst
-        order = np.lexsort((w, key))     # per key, smallest weight first
-        key, src, dst, w = key[order], src[order], dst[order], w[order]
-        _, first = np.unique(key, return_index=True)
+        # weight (the first in input order among equal ones), so the result
+        # does not depend on input edge order: the reference's
+        # lexsort((w, key)) and first of each key
+        if weights is None:
+            order = _stable_order(src * n + dst)
+        else:
+            order = _stable_order(_float_order_key(w))
+            order = order[_stable_order((src * n + dst)[order])]
+        src, dst, w = src[order], dst[order], w[order]
+        keep = torch.ones_like(src, dtype=torch.bool)
+        keep[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+        keep &= src != dst
+        m = int(keep.sum())
+        first = torch.nonzero_static(keep, size=m).squeeze(1)
         src, dst, w = src[first], dst[first], w[first]
+    else:
+        m = int(src.shape[0])
+        order = _stable_order(src * n_pad + dst)
+        src, dst, w = src[order], dst[order], w[order]
+    stage("dedup")
 
-    m = int(src.shape[0])
-    n_pad = round_up(n + 1, block_size)
     m_pad = round_up(max(m, 1), block_size)
-    sentinel = n_pad - 1
-
-    def build(direction_src, direction_dst):
-        order = np.lexsort((direction_dst, direction_src))
-        s, d, ww = direction_src[order], direction_dst[order], w[order]
-        counts = np.bincount(s, minlength=n_pad).astype(np.int32)
-        counts[sentinel] = 0
-        rp = np.zeros(n_pad + 1, dtype=np.int32)
-        np.cumsum(counts, out=rp[1:])
-        ci = _pad_to(d.astype(np.int32), m_pad, sentinel)
-        si = _pad_to(s.astype(np.int32), m_pad, sentinel)
-        ew = _pad_to(ww, m_pad, 0.0)
-        return rp, ci, si, ew, counts
-
-    arrays = dict(zip(("row_ptr", "col_idx", "src_idx", "edge_w", "out_deg"),
-                      build(src, dst)))
+    tensors = dict(zip(("row_ptr", "col_idx", "src_idx", "edge_w", "out_deg"),
+                       _csr(src, dst, w, n_pad, m_pad)))
+    stage("csr")
     if build_csc:
         # for CSC the "row" is the destination and the stored index the
-        # source: in_col_idx = in-neighbour, in_src_idx = the destination
-        arrays.update(zip(("in_row_ptr", "in_col_idx", "in_src_idx",
-                           "in_edge_w", "in_deg"), build(dst, src)))
-    return from_arrays(arrays, n=n, m=m, n_pad=n_pad, m_pad=m_pad,
-                       block_size=block_size, device=dev)
+        # source: in_col_idx = in-neighbour, in_src_idx = the destination;
+        # stable, so duplicates keep their input order as in the CSR
+        order = _stable_order(dst * n_pad + src)
+        tensors.update(zip(("in_row_ptr", "in_col_idx", "in_src_idx",
+                            "in_edge_w", "in_deg"),
+                           _csr(dst[order], src[order], w[order], n_pad, m_pad)))
+        stage("csc")
+    return Graph(n=n, m=m, n_pad=n_pad, m_pad=m_pad, block_size=block_size,
+                 **tensors)
 
 
 def to_dense(g: Graph) -> np.ndarray:

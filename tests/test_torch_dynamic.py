@@ -554,10 +554,12 @@ def test_corrupt_log_refused(tmp_path):
 # the suite
 # ---------------------------------------------------------------------------
 
-def test_dynamic_suite_rows_match_reference():
+def test_dynamic_suite_rows_match_reference(monkeypatch):
     from benchmarks import dynamic as jsuite
     from repro_torch.benchmarks import dynamic as tsuite
 
+    # the JAX suite times its compaction: one call (walls are not compared)
+    monkeypatch.setattr(jsuite, "time_call", lambda fn, *a, **k: (fn(*a), 0.0)[1])
     trows = {r[0]: r for r in tsuite.run(device="cpu")}
     jrows = {r[0]: r for r in jsuite.run()}
     assert list(trows) == list(jrows)

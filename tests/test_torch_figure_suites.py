@@ -4,8 +4,9 @@
 
 Each suite runs once in each package (the JAX suite's timing helper
 records each timed call's result and makes one call; the sharded tc cell
-of ``algo_classes`` runs in the JAX suite's own 4-device subprocess, and
-in the port on a 4-position CPU mesh).  Held: the row names equal; the
+of ``algo_classes`` runs in the JAX suite's own 4-device subprocess, its
+timer one call too and with a compilation cache of its own, and in the
+port on a 4-position CPU mesh).  Held: the row names equal; the
 derived counters equal; every ``RunStats`` field equal but ``substrate``,
 ``compiles`` (granularity's derived ``compiles`` is compared) and wall
 times; the results behind each row bitwise (labels, distances, core
@@ -23,6 +24,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from benchmarks import algo_classes as jalgo  # noqa: E402
+from benchmarks import common as jcommon  # noqa: E402
 from benchmarks import frameworks as jfw  # noqa: E402
 from benchmarks import granularity as jgran  # noqa: E402
 from benchmarks.common import bench_graphs as jbench_graphs  # noqa: E402
@@ -39,6 +41,7 @@ from repro_torch.core.algorithms import bfs as tbfs  # noqa: E402
 from repro_torch.core.algorithms import cc as tcc  # noqa: E402
 from repro_torch.core.algorithms import pagerank as tpr  # noqa: E402
 from repro_torch.core.algorithms import sssp as tsssp  # noqa: E402
+from test_torch_mesh_suites import fast_helpers  # noqa: E402
 
 SUITES = {"granularity": (jgran, tgran), "frameworks": (jfw, tfw),
           "algo_classes": (jalgo, talgo)}
@@ -62,9 +65,13 @@ def run_reference(mod, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     cache = {}
     mp = pytest.MonkeyPatch()
+    # the sharded tc cell's subprocess times its calls with the same
+    # one-call timer (its walls are not compared either)
+    mp.setattr(jcommon, "SUBPROC_HELPERS",
+               fast_helpers(tmp_path_factory.mktemp("figure_suites")))
 
     def get(name):
         if name not in cache:

@@ -3,7 +3,8 @@ placement,vs_cluster}``) against the JAX package's, at the JAX suites'
 own sizes, the port on a CPU mesh.
 
 The JAX suites run their 8-device subprocesses with a timing helper that
-makes one call (``FAST_T``: walls are not compared).  Held: row names
+makes one call (``FAST_T``: walls are not compared) and a compilation
+cache of their own.  Held: row names
 equal, each row's derived counters equal, and every stats field equal but
 ``substrate`` and the wall fields.  The JAX placement suite stops after its
 ``local`` row on this jax (its ``place_graph`` puts the (n_pad + 1,)
@@ -31,6 +32,7 @@ from repro_torch.benchmarks import common as tcommon  # noqa: E402
 from repro_torch.benchmarks import placement as tplace  # noqa: E402
 from repro_torch.benchmarks import scaling as tscaling  # noqa: E402
 from repro_torch.benchmarks import vs_cluster as tvs  # noqa: E402
+from test_torch_sharded import compile_cache_env  # noqa: E402
 
 FAST_T = '''
 def t(fn, reps=3):
@@ -44,12 +46,21 @@ SUITES = {"scaling": (jscaling, tscaling), "comm_volume": (jcomm, tcomm),
           "placement": (jplace, tplace), "vs_cluster": (jvs, tvs)}
 
 
+def fast_helpers(cache_dir):
+    """The JAX suites' subprocess prelude with ``FAST_T`` for its timer and
+    a compilation cache of the subprocesses' own in ``cache_dir``."""
+    helpers = jcommon.SUBPROC_HELPERS
+    env = "".join(f"os.environ[{k!r}] = {v!r}\n"
+                  for k, v in compile_cache_env(cache_dir).items())
+    return "import os\n" + env + FAST_T + helpers[helpers.index("def emit"):]
+
+
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     cache = {}
     mp = pytest.MonkeyPatch()
-    helpers = jcommon.SUBPROC_HELPERS
-    mp.setattr(jcommon, "SUBPROC_HELPERS", FAST_T + helpers[helpers.index("def emit"):])
+    mp.setattr(jcommon, "SUBPROC_HELPERS",
+               fast_helpers(tmp_path_factory.mktemp("mesh_suites")))
 
     def get(name):
         if name not in cache:

@@ -229,12 +229,23 @@ main(sys.argv[1], json.loads(open(sys.argv[2]).read()))
 '''
 
 
+def compile_cache_env(tmp_dir: Path) -> dict:
+    """JAX's persistent compilation cache in ``tmp_dir``, every program
+    kept: the reference's runs trace many programs twice under new closures
+    (about half of a run's compiles), which the cache, keyed by the lowered
+    program, compiles once.  The executables are the same either way."""
+    return {"JAX_COMPILATION_CACHE_DIR": str(tmp_dir / "jax_cache"),
+            "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "0",
+            "JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES": "0"}
+
+
 def run_reference(tmp_dir: Path, spec: dict) -> dict:
-    """Run ``REFERENCE`` for ``spec`` in a fresh interpreter; its npz as a
-    dict of arrays."""
+    """Run ``REFERENCE`` for ``spec`` in a fresh interpreter (with a
+    compilation cache of its own); its npz as a dict of arrays."""
     spec_path, out = tmp_dir / "spec.json", tmp_dir / "reference.npz"
     spec_path.write_text(json.dumps(spec))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               **compile_cache_env(tmp_dir))
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable, "-c", REFERENCE, str(out), str(spec_path)],
                        capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
