@@ -9,7 +9,8 @@ non-zero exit before its last line:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every kernel library (``src/repro_torch/kernels/*/csrc/*.cu``:
-   graph_ops, flash_attention, spmm_bsr, embedding_bag), one ``nvcc`` each,
+   graph_ops, flash_attention, spmm_bsr, embedding_bag, device_loop,
+   crc32), one ``nvcc`` each,
    all at once, into the git-ignored ``build/repro_torch``; then, for each
    instantiation of the three tensor-core kernels (the bf16 and f32
    flash-attention kernels ``flash_tc_kernel`` and ``flash_f32_kernel``,
@@ -84,7 +85,12 @@ non-zero exit before its last line:
    the CPU);
 9c. out of core: both web graphs cut with ``tier_graph(nshards=16,
    resident_shards=2, build_csc=True)`` (pinned host shards; the CSR 8
-   times the pool); edge_relax on the shards as the streamed path gives
+   times the pool); the crc32 kernel that checks every streamed copy
+   (``kernels/crc32``) against the CRC each cut recorded for all 64 CSR
+   and CSC shards, against ``crc32_ref`` on the card at odd lengths from
+   an unaligned start, on 16 seeded single-bit flips of the largest shard
+   (each seen), and timed on that shard against its byte bound, its
+   pinned H2D copy and the host's zlib; edge_relax on the shards as the streamed path gives
    them (push over a middle and the partial last CSR shard, pull over a
    CSC shard, the reversed push), bitwise; then bfs_dd_sparse (fused,
    per-round, and fused under "torch"), sssp_dd_sparse and bfs_dirop
@@ -100,7 +106,11 @@ non-zero exit before its last line:
    under deterministic add at pools of 2 and 16 and eager, bitwise; each
    run prints its wall, H2D GB/s, io_wait_us, buffer hits, the device's
    kernel and copy busy shares (a second, profiled call) and its time per
-   edge touched against the resident run's; then the weighted graph
+   edge touched against the resident run's, and its crc32 launches must
+   equal its misses (no miss unchecked, none checked on the host); a
+   fault drill on the web cut: a bitflip at the first read heals (one
+   checksum failure, one retry, labels bitwise), a persistent torn shard
+   0 raises ShardCorruptError after three failed checks; then the weighted graph
    through the store (``save_graph`` under ``build/``, ``open_graph``
    with ``verify="open"``, bfs equal, then a reversed push and a pull
    over every shard through the pinned staging ring, bitwise to the
@@ -133,8 +143,8 @@ non-zero exit before its last line:
    batches of 65,536 inserts between existing vertices (symmetrized),
    incremental bfs and cc bitwise to the from-scratch runs after each,
    pr_incremental's det-add replay over the first batch allclose to
-   scratch (atol scaled to the mean rank 1/n) at a pool of 16 and, cut to
-   DYN_DET_ITERS rounds a solve, bitwise across pools of 16 and 4 (every
+   scratch (atol scaled to the mean rank 1/n) at a pool of 16 and, each
+   solve to convergence, bitwise across pools of 16 and 4 (every
    handle checking its CRCs as shards stream), compaction, the v3 round
    trip and one batch after compaction: every flag of the suite's rows 1;
    then, on the store the suite leaves (base and six logs), a cold and a
@@ -356,7 +366,13 @@ residual-threshold exit reads float sums taken in another order (seen on
 kron: 143 rounds under "cuda", 142 under "torch").  Its rounds are all
 dense then, each charging m, and that is checked on both sides.
 
-The device loop (no TPU kernel: the graph that replaces the reference's
+The crc32 kernel (no TPU kernel: the check of each streamed copy that
+replaces the reference's host zlib on every miss) has a line of its own,
+``{"shard_crc32": {...}}``: its launches (the misses of 9c's runs, of 9f
+in this process and of 9g), its time on the largest shard (``ms``), the
+plain version's, its byte bound, the shard's H2D copy and the host's zlib
+on the same bytes; ``library_ms`` is null, as no PyTorch call computes a
+CRC-32.  The device loop (no TPU kernel: the graph that replaces the reference's
 stretch ``while_loop``) has a line of its own before the kernels line,
 ``{"device_loop": {...}}``: its graph launches on the main path, and 2,000
 rounds of the path's stretch timed through the graph (``ms``) and through
@@ -406,6 +422,7 @@ import subprocess
 import sys
 import time
 import warnings
+import zlib
 from collections import namedtuple
 from pathlib import Path
 
@@ -1387,6 +1404,13 @@ OOC_CC_ROUNDS = 15             # cc_dd_sparse's rounds out of core (depth cut fr
                                # 326 to keep the run in its time; both sides stop there)
 OOC_PR_ITERS = 20              # pr_push's rounds out of core (depth cut from the JAX
                                # outofcore suite's 50: every round streams the graph)
+# the crc32 kernel against crc32_ref on the card at tests/test_torch_crc32.py's
+# odd lengths, each 3 bytes into its buffer (an unaligned start); and its
+# seeded single-bit flips of the largest shard, every one to be seen
+CRC_LENGTHS = (0, 1, 3, 4, 5, 95, 96, 97, 4095, 4096, 4097, (1 << 20) + 13)
+CRC_FLIPS = 16
+# (label, launches of the crc32 kernel) of each 9c run: the run's verified misses
+CRC_VERIFIED = []
 
 
 def sync_count(torch, fn):
@@ -1606,20 +1630,29 @@ def far_source(torch, ops, eng, g, owner):
     return v, int(lo[v]), int(hi[v]), rounds
 
 
-def ooc_run(torch, label, fn, tg, resident=None, busy=False):
+def ooc_run(torch, label, fn, tg, resident=None, busy=False, crc=None):
     """One streamed run from an empty pool (so the stream counters are the
     run's own): wall, stream counters, exact h2d accounting, with ``busy``
     the device's kernel and copy busy shares (a second, profiled call), and
     against a resident run ``(labels, stats, wall_ms)`` the time per edge
-    touched."""
+    touched.  With ``crc`` (the crc32 kernel's wrapper) its launches in the
+    run must equal the run's checked copies: every miss, and every attempt
+    whose CRC failed (``CRC_VERIFIED``)."""
     tg._pool.clear()
     torch.cuda.synchronize()
+    crc0 = None if crc is None else crc.launches
     t0 = time.perf_counter()
     labels, st = fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     check(st.placement == "tiered" and st.h2d_bytes == st.shards_streamed * tg.shard_bytes,
           f"ooc {label}: h2d_bytes {st.h2d_bytes} != {st.shards_streamed} x {tg.shard_bytes}")
+    if crc is not None:
+        verified = crc.launches - crc0
+        check(verified == st.shards_streamed + st.checksum_failures,
+              f"ooc {label}: {verified} crc32 launches for {st.shards_streamed} misses and "
+              f"{st.checksum_failures} failed checks")
+        CRC_VERIFIED.append((label, verified))
     kern, copy = busy_shares(torch, fn) if busy else (None, None)
     line = dict(run=label, wall_ms=wall, rounds=st.rounds, edges_touched=st.edges_touched,
                 h2d_bytes=st.h2d_bytes, shards_streamed=st.shards_streamed,
@@ -1627,7 +1660,8 @@ def ooc_run(torch, label, fn, tg, resident=None, busy=False):
                 h2d_gbps=st.h2d_bytes / (wall * 1e-3) / 1e9,
                 kernel_busy_share=None if kern is None else kern / wall,
                 copy_busy_share=None if copy is None else copy / wall,
-                pull_rounds=st.pull_rounds)
+                pull_rounds=st.pull_rounds,
+                crc32_launches=None if crc is None else CRC_VERIFIED[-1][1])
     if resident is not None and st.edges_touched and resident[1].edges_touched:
         line["per_edge_vs_resident"] = ((wall / st.edges_touched)
                                         / (resident[2] / resident[1].edges_touched))
@@ -1643,8 +1677,110 @@ def timed_run(torch, fn):
     return labels, st, (time.perf_counter() - t0) * 1e3
 
 
-def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gsym, hub,
-              rng, directory):
+def crc_checks(torch, np, crc_ops, crc_ref, cuts):
+    """9c: the crc32 kernel (``kernels/crc32``) on the card: against the
+    CRC each cut recorded for every CSR and CSC shard of ``cuts`` (no host
+    CRC is taken), against ``crc32_ref`` on the card (and zlib) at
+    CRC_LENGTHS from an unaligned start, and on CRC_FLIPS seeded
+    single-bit flips of the largest shard, each of which it must see; then
+    its time on that shard (CUDA events, 5 reps after a warm-up) against
+    its byte bound, the plain version's, the shard's H2D copy from pinned
+    memory and the host's zlib on the same bytes.  Launches here are
+    comparisons.  Returns the fields of the ``shard_crc32`` line."""
+    out = torch.empty((1,), dtype=torch.int32, device="cuda")
+    checked, big = 0, None
+    for label, tg in cuts:
+        for direction, hosts, crcs in (("csr", tg._bufs, tg.shard_crcs),
+                                       ("csc", tg._csc_bufs, tg.in_shard_crcs)):
+            for sid, host in enumerate(hosts):
+                dev = host.to("cuda")
+                got = crc_ops.crc32(dev)
+                check(got == crcs[sid], f"crc32 {label} {direction} shard {sid}: {got:#010x} "
+                      f"!= recorded {crcs[sid]:#010x}")
+                checked += 1
+                if big is None or dev.numel() > big[1].numel():
+                    big = (f"{label} {direction} shard {sid}", dev, host, crcs[sid])
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for n in CRC_LENGTHS:
+        raw = torch.randint(0, 256, (n + 3,), generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.uint8)
+        t = raw[3:]
+        got, want = crc_ops.crc32(t), crc_ref.crc32_ref(t)
+        check(got == want == zlib.crc32(t.cpu().numpy()),
+              f"crc32 at {n} bytes: kernel {got:#010x}, plain {want:#010x}")
+    name, dev, host, want = big
+    nbytes = dev.numel() * dev.element_size()
+    flat = dev.view(torch.uint8)
+    draw = np.random.default_rng(29)
+    for i in range(CRC_FLIPS):
+        pos, bit = int(draw.integers(0, nbytes)), 1 << int(draw.integers(0, 8))
+        flat[pos] ^= bit
+        got, plain = crc_ops.crc32(dev), crc_ref.crc32_ref(dev)
+        flat[pos] ^= bit
+        check(got != want and got == plain,
+              f"crc32: flip {i} (byte {pos}, bit {bit}) of {name}: kernel {got:#010x}, plain "
+              f"{plain:#010x}, recorded {want:#010x}")
+    check(crc_ops.crc32(dev) == want, f"crc32: {name} not restored after the flips")
+    ms = cuda_ms(torch, lambda: crc_ops.crc32_async(dev, out))
+    plain_ms = cuda_ms(torch, lambda: crc_ref.crc32_ref(dev))
+    h2d_ms = cuda_ms(torch, lambda: dev.copy_(host, non_blocking=True))
+    bound, by = bound_ms(nbytes, 0)
+    a = host.numpy()
+    zlib.crc32(a)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        zlib.crc32(a)
+    zlib_ms = (time.perf_counter() - t0) / 3 * 1e3
+    row = dict(case=f"{name}, {nbytes} bytes", shards_checked=checked,
+               lengths=len(CRC_LENGTHS), flips_seen=CRC_FLIPS, max_abs_err=0, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+               gbps=nbytes / ms / 1e6, h2d_ms=h2d_ms, h2d_gbps=nbytes / h2d_ms / 1e6,
+               host_zlib_ms=zlib_ms, host_zlib_gbps=nbytes / zlib_ms / 1e6)
+    print("  crc32 " + json.dumps(row), flush=True)
+    return row
+
+
+def crc_drill(torch, ops, bfs, faultio, crc, tg, source, want):
+    """9c: a fault drill at full size on the web graph's cut: a bitflip on
+    the first read (``at=0, times=1``) heals with one checksum failure and
+    one retry, the labels bitwise the resident run's and one more crc32
+    launch than misses; a persistent torn read of shard 0 under a reversed
+    push (which streams every shard from 0) raises ShardCorruptError after
+    three failed checks."""
+    tg._pool.clear()
+    tg.set_fault_injector(faultio.FaultInjector([faultio.bitflip("shard_read", at=0, times=1)]))
+    crc0 = crc.launches
+    try:
+        got, st = bfs.bfs_dd_sparse(tg, source)
+        torch.cuda.synchronize()
+    finally:
+        tg.set_fault_injector(None)
+    check(torch.equal(got, want) and st.checksum_failures == 1 and st.io_retries == 1
+          and crc.launches - crc0 == st.shards_streamed + 1,
+          f"crc drill bitflip: checksum_failures {st.checksum_failures}, io_retries "
+          f"{st.io_retries}, {crc.launches - crc0} launches for {st.shards_streamed} misses, "
+          f"labels equal {torch.equal(got, want)}")
+    tg._pool.clear()
+    tg.set_fault_injector(faultio.FaultInjector([faultio.torn("shard_read", key=0)]))
+    fails0, raised = tg.io.checksum_failures, None
+    vals = torch.ones(tg.n_pad, device="cuda")
+    try:
+        ops.push_dense(tg, vals, tg.valid_vertex_mask(), vals, reverse=True)
+    except faultio.ShardCorruptError as err:
+        raised = err
+    finally:
+        tg.set_fault_injector(None)
+        tg._pool.clear()
+    fails = tg.io.checksum_failures - fails0
+    check(raised is not None and "csr shard 0" in str(raised) and fails == 3,
+          f"crc drill torn: raised {raised!r}, checksum_failures {fails}")
+    print(f"crc drill: a bitflip at the first read healed (checksum_failures 1, io_retries "
+          f"1, labels bitwise, {st.shards_streamed} misses); a persistent torn shard 0 "
+          f"raised ShardCorruptError after {fails} failed checks", flush=True)
+
+
+def ooc_phase(torch, np, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, crc_mods, g,
+              gsym, hub, rng, directory):
     """9c: out of core on phase 3's graphs, each cut into 16 shards with a
     pool of 2 (the CSR 8 times the pool).  Labels bitwise equal to the
     resident runs, pagerank bitwise across pools and fused against eager
@@ -1654,8 +1790,15 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
     the store.  The traversals of the web graph start at ``far_source``,
     whose reach crosses the most shards (the hub's stays in one), and each
     must stream more shards than the pool holds.  The store is saved
-    under ``directory`` and kept for 9f.  Returns (edge_relax shard rows,
-    edge_relax launches, the far source, its resident bfs labels)."""
+    under ``directory`` and kept for 9f.  ``crc_mods`` is (the crc32
+    kernel's ops, its ref, faultio): the kernel is held to the cuts'
+    recorded CRCs first (``crc_checks``), every streamed run's misses are
+    its launches, and ``crc_drill`` runs after the runs.  Returns (edge_relax
+    shard rows, edge_relax launches, the far source, its resident bfs
+    labels, the ``shard_crc32`` fields)."""
+    crc_ops, crc_ref, faultio = crc_mods
+    crc = crc_ops.crc32_async
+    CRC_VERIFIED.clear()
     t0 = time.perf_counter()
     tg = tiered.tier_graph(g, nshards=16, resident_shards=2, build_csc=True)
     tgs = tiered.tier_graph(gsym, nshards=16, resident_shards=2, build_csc=True)
@@ -1663,6 +1806,9 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
           f"web epd={tg.epd} shard_bytes={tg.shard_bytes} csr_bytes={tg.csr_bytes} "
           f"budget={tg.resident_budget}; sym shard_bytes={tgs.shard_bytes} "
           f"csr_bytes={tgs.csr_bytes}", flush=True)
+    t0 = time.perf_counter()
+    crc_row = crc_checks(torch, np, crc_ops, crc_ref, (("web", tg), ("sym", tgs)))
+    print(f"crc32: {time.perf_counter() - t0} s", flush=True)
     rows = []
     for name, kw in shard_relax_cases(torch, tg, rng):
         row = run_edge_relax_case(torch, gk, name, kw)
@@ -1697,7 +1843,7 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
              False, True),
             ("pr_pull", lambda: pagerank.pr_pull(tgs), "pr_pull", False, True)):
         web = ref in ("bfs", "sssp", "dirop")
-        labels, st, _ = ooc_run(torch, label, fn, tg if web else tgs, res[ref], busy)
+        labels, st, _ = ooc_run(torch, label, fn, tg if web else tgs, res[ref], busy, crc)
         if web:
             check(st.shards_streamed > tg.resident_shards,
                   f"ooc {label}: {st.shards_streamed} shards streamed, the pool holds "
@@ -1719,7 +1865,7 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
     check(launches["edge_relax"] > 0, "ooc: edge_relax was not launched on the streamed path")
     with ops.substrate_scope("torch"):
         labels, st, _ = ooc_run(torch, "bfs_dd_sparse [torch]",
-                                lambda: bfs.bfs_dd_sparse(tg, source), tg, res["bfs"])
+                                lambda: bfs.bfs_dd_sparse(tg, source), tg, res["bfs"], crc=crc)
     check(torch.equal(labels, res["bfs"][0]) and st.shards_streamed > tg.resident_shards,
           f"ooc bfs [torch]: labels differ, or {st.shards_streamed} shards streamed")
     check(gk.launch_counts() == launches, "ooc: the torch substrate launched a kernel")
@@ -1729,13 +1875,18 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
         for label, t, fused in (("pool 2", tgs, True), ("pool 16", tgs16, True),
                                 ("pool 2, eager", tgs, False)):
             det[label] = ooc_run(torch, f"pr_push det {label}",
-                                 lambda: pr_push_streamed(torch, eng, pagerank, t, fused), t)[0]
+                                 lambda: pr_push_streamed(torch, eng, pagerank, t, fused), t,
+                                 crc=crc)[0]
     check(torch.equal(det["pool 2"], det["pool 16"]) and
           torch.equal(det["pool 2"], det["pool 2, eager"]),
           "ooc pr_push det: not bitwise across pools and regimes")
     check(torch.allclose(det["pool 2"], res["pr_push"][0], rtol=PR_TOL[0], atol=PR_TOL[1]),
           "ooc pr_push det: outside PR_TOL of the resident run")
+    with ops.deterministic_add_scope(True):
+        round_profile(torch, eng, pagerank, tgs, "pr_push det, pool 2")
+    round_profile(torch, eng, pagerank, tgs, "pr_push, pool 2")
     del tgs, tgs16
+    crc_drill(torch, ops, bfs, faultio, crc, tg, source, res["bfs"][0])
     shutil.rmtree(directory, ignore_errors=True)
     t0 = time.perf_counter()
     store.save_graph(tg, str(directory))
@@ -1746,7 +1897,8 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
     check(opened.shard_crcs == tg.shard_crcs and opened.verified,
           "store: CRCs differ from the cut's")
     labels, st, _ = ooc_run(torch, "bfs_dd_sparse [store, mmap]",
-                            lambda: bfs.bfs_dd_sparse(opened, source), opened, res["bfs"])
+                            lambda: bfs.bfs_dd_sparse(opened, source), opened, res["bfs"],
+                            crc=crc)
     check(torch.equal(labels, res["bfs"][0]) and st.shards_streamed > opened.resident_shards,
           f"store bfs: labels differ, or {st.shards_streamed} shards streamed")
     # every shard of both directions through the pinned staging ring
@@ -1754,24 +1906,34 @@ def ooc_phase(torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gs
     act = g.valid_vertex_mask()
     opened._pool.clear()   # every shard of both directions misses
     io0 = opened.io.snapshot()
+    crc0 = crc.launches
+    t0 = time.perf_counter()
     for name, got, want in (
             ("reversed push", ops.push_dense(opened, vals, act, vals, reverse=True),
              ops.push_dense(g, vals, act, vals, reverse=True)),
             ("pull", ops.pull_dense(opened, vals, act, vals), ops.pull_dense(g, vals, act, vals))):
         check(torch.equal(bits(torch, got), bits(torch, want)),
               f"store {name}: differs from the resident relax")
+    staged_s = time.perf_counter() - t0
     streamed = opened.io.shards_streamed - io0[1]
     check(opened.io.h2d_bytes - io0[0] == streamed * opened.shard_bytes
-          and streamed == 2 * opened.nshards, f"store relaxes: {streamed} shards streamed")
+          and streamed == 2 * opened.nshards and crc.launches - crc0 == streamed,
+          f"store relaxes: {streamed} shards streamed, {crc.launches - crc0} crc32 launches")
+    CRC_VERIFIED.append(("store relaxes", streamed))
     print(f"store: saved in {t_save} s, opened with verify='open' in {t_open} s, "
           f"bfs equal; a reversed push and a pull over every shard streamed {streamed} "
-          f"shards through the staging ring, bitwise equal to the resident relaxes",
-          flush=True)
-    return rows, launches["edge_relax"], source, res["bfs"][0]
+          f"shards ({streamed * opened.shard_bytes} bytes) through the staging ring in "
+          f"{staged_s} s ({streamed * opened.shard_bytes / staged_s / 1e9} GB/s, the mmap "
+          f"copy into pinned staging, the H2D copy, the CRC and the relaxes), bitwise "
+          f"equal to the resident relaxes", flush=True)
+    crc_row["launches"] = sum(n for _, n in CRC_VERIFIED)
+    print(f"crc32 launches on 9c's streamed runs (each its run's checked copies): "
+          f"{json.dumps(dict(CRC_VERIFIED))}", flush=True)
+    return rows, launches["edge_relax"], source, res["bfs"][0], crc_row
 
 
-def pr_push_streamed(torch, eng, pagerank, tg, fused):
-    """pr_push's streamed run of ``OOC_PR_ITERS`` rounds through
+def pr_push_streamed(torch, eng, pagerank, tg, fused, iters=OOC_PR_ITERS):
+    """pr_push's streamed run of ``iters`` rounds through
     ``run_streamed(fused=...)``, normalised as ``pr_push`` does: the eager
     regime is the runner's option, not pr_push's."""
     valid = tg.valid_vertex_mask()
@@ -1779,11 +1941,35 @@ def pr_push_streamed(torch, eng, pagerank, tg, fused):
     io0 = tg.io.snapshot()
     state0 = (torch.zeros(tg.n_pad, device=tg.device),
               torch.where(valid, 1.0 - 0.85, 0.0))
-    rounds, (rank, resid) = eng.run_streamed(tg, step, state0, cond, active, OOC_PR_ITERS,
+    rounds, (rank, resid) = eng.run_streamed(tg, step, state0, cond, active, iters,
                                              fused=fused)
     rank = rank + resid
     return (torch.where(valid, rank / rank.sum(), 0.0),
             pagerank._dense_stats(tg, rounds, io0))
+
+
+def round_profile(torch, eng, pagerank, tg, label):
+    """One eager streamed pr_push round on ``tg`` from an empty pool (every
+    shard a miss): its wall, then the device time of a second such round
+    by op under ``torch.profiler``: what holds a round, the link (its H2D
+    copies) or the relaxes."""
+    tg._pool.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr_push_streamed(torch, eng, pagerank, tg, False, iters=1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    tg._pool.clear()
+    events, err = profiled(torch, lambda: pr_push_streamed(torch, eng, pagerank, tg, False,
+                                                           iters=1))
+    ops_ms = sorted(((ev.key, (getattr(ev, "self_device_time_total", 0) or 0) / 1e3, ev.count)
+                     for ev in events or ()), key=lambda r: -r[1])
+    ops_ms = [r for r in ops_ms if r[1] > 0]
+    copy = sum(ms for key, ms, _ in ops_ms if "emcpy" in key)
+    print(f"ooc round profile, {label}: wall {wall} ms ({tg.nshards} misses, "
+          f"{tg.nshards * tg.shard_bytes} bytes); device {sum(r[1] for r in ops_ms)} ms, "
+          f"copies {copy} ms; by op (ms, calls): {json.dumps(ops_ms[:10])}"
+          + (f"; profiler: {err}" if err else ""), flush=True)
 
 
 def memtier_phase(memtier):
@@ -1820,13 +2006,14 @@ GRANULARITY_COMMUNITIES = 64   # an eighth of phase 3's 512, cut in depth only
 RESUME_DRILLS = (("bfs", 2), ("pr_push", 16))
 # 9g: inserts between existing vertices, symmetrized
 DYN_BATCHES, DYN_BATCH_EDGES, DYN_POOLS = 6, 65_536, (16, 4)
-# depth cuts of the pagerank replays: they take the first batch only, and
-# the cross-pool pair stops each solve after DYN_DET_ITERS rounds (the
-# converged replay at a pool of 16 is the one held to scratch): at a pool
-# of 4 every round misses all 16 shards and re-checks their CRCs, 0.76 s a
-# round on an H100 (PERF.md); DYN_SUB_ITERS rounds a solve for the substrate
-# check
-DYN_PR_BATCHES, DYN_DET_ITERS, DYN_SUB_ITERS = 1, 5, 20
+# depth cut of the pagerank replays: they take the first batch only; the
+# cross-pool pair runs each solve to convergence (DYN_DET_ITERS is the
+# suite's cap of 300, as for the replay held to scratch).  At a pool of 4
+# every round misses all 16 shards: 0.28-0.39 s a round on an H100 with
+# each copy's CRC on the card (0.76 s with the host's zlib); all six
+# batches took 9g to 358.8 s and the script to 981.1 s (PERF.md).
+# DYN_SUB_ITERS rounds a solve for the substrate check
+DYN_PR_BATCHES, DYN_DET_ITERS, DYN_SUB_ITERS = 1, 300, 20
 
 
 class _Stats(dict):
@@ -5075,10 +5262,12 @@ def main() -> int:
     from repro_torch.core import mesh as tc_mesh
     from repro_torch.core import multisource as ms
     from repro_torch.core import partition, sharded
-    from repro_torch.core import tiered
+    from repro_torch.core import faultio, tiered
     from repro_torch.kernels import device_loop as dl
     from repro_torch.kernels import build
     from repro_torch.kernels import graph_ops as gk
+    from repro_torch.kernels.crc32 import ops as crc_ops
+    from repro_torch.kernels.crc32 import ref as crc_ref
     from repro_torch.kernels.embedding_bag import embedding_bag as ek
     from repro_torch.kernels.embedding_bag import ops as eops
     from repro_torch.kernels.embedding_bag import ref as eref
@@ -5288,9 +5477,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     directory = ROOT / "build" / f"chip_store_{os.getpid()}"
     try:
-        shard_rows, ooc_relax, far, far_ref = ooc_phase(
-            torch, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank, g, gsym, source,
-            rng, directory)
+        shard_rows, ooc_relax, far, far_ref, crc_row = ooc_phase(
+            torch, np, gk, ops, eng, tiered, store, bfs, sssp, cc, pagerank,
+            (crc_ops, crc_ref, faultio), g, gsym, source, rng, directory)
         relax_rows += shard_rows
         print(f"9c: {time.perf_counter() - t0} s, peak device bytes "
               f"{torch.cuda.max_memory_allocated()}", flush=True)
@@ -5303,16 +5492,23 @@ def main() -> int:
                                       (g, gsym, source), (kg, kgsym, ksource), refs)
         print(f"9e: {time.perf_counter() - t0} s", flush=True)
         t0 = time.perf_counter()
+        crc0 = crc_ops.crc32_async.launches
         resume_launches = resume_phase(torch, np, gk, ops, store, bfs, pagerank, directory,
                                        far, far_ref, g, source,
                                        *cuda_runs["bfs_dd_sparse"][:1],
                                        cuda_runs["bfs_dd_sparse"][1].rounds)
-        print(f"9f: {time.perf_counter() - t0} s", flush=True)
+        crc_9f = crc_ops.crc32_async.launches - crc0
+        print(f"9f: {time.perf_counter() - t0} s; crc32 launches (this process) {crc_9f}",
+              flush=True)
         t0 = time.perf_counter()
+        crc0 = crc_ops.crc32_async.launches
         dyn_launches = dynamic_phase(torch, np, gk, ops, store, pagerank, dynamic_bench,
                                      gsym, source,
                                      directory.parent / f"{directory.name}_dynamic")
-        print(f"9g: {time.perf_counter() - t0} s", flush=True)
+        crc_9g = crc_ops.crc32_async.launches - crc0
+        print(f"9g: {time.perf_counter() - t0} s; crc32 launches {crc_9g}", flush=True)
+        check(crc_9f > 0 and crc_9g > 0, "9f or 9g streamed no shard through the crc32 kernel")
+        crc_row["launches"] += crc_9f + crc_9g
     finally:
         for d in (directory, directory.parent / f"{directory.name}_dynamic",
                   directory.parent / f"{directory.name}_ckpt"):
@@ -5442,6 +5638,13 @@ def main() -> int:
               "src/repro/kernels/embedding_bag/embedding_bag.py:25",
               max(r["max_abs_err"] for r in eb_rows), eb_rows[0]),
     ]
+    # no TPU kernel: the check of each streamed shard's copy that replaces
+    # the reference's host zlib on every miss; its launches are the misses
+    # of 9c's runs, 9f's (this process) and 9g's
+    print(json.dumps({"shard_crc32": dict(
+        name="crc32", route="cuda", source="src/repro_torch/kernels/crc32/csrc/crc32.cu",
+        replaces="src/repro/core/tiered.py:93 (shard_crc: zlib.crc32 on the host, every "
+                 "miss, from _read_shard at :442)", **crc_row)}), flush=True)
     # no TPU kernel: the graph that replaces the reference's stretch
     # while_loop; its graph launches on the main path (phase 6)
     print(json.dumps({"device_loop": dict(

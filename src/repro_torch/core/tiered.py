@@ -16,10 +16,11 @@ of at most ``resident_shards`` device buffers:
   vertex range holds an active vertex with out-edges (``round_live``);
   the engine fetches that vector with the round's termination scalars in
   one transfer and hands it down as the schedule.
-* **Double-buffered streaming** — the copy of the next scheduled shard is
-  issued before the current one's relax: copies run on a dedicated copy
-  stream, each followed by an event that the compute stream waits on just
-  before that shard's relax.  In-memory shards (``tier_graph``) sit in
+* **Double-buffered streaming** — each shard's relax is enqueued before
+  the next scheduled shard is fetched, so the relax runs while that copy
+  and its check are in flight: copies run on a dedicated copy stream,
+  each followed by an event that the compute stream waits on just before
+  that shard's relax.  In-memory shards (``tier_graph``) sit in
   pinned host memory and copy straight from it; store-backed shards
   (mmap views) are first read into a ring of two pinned staging buffers,
   each reused only after its last copy's event has completed.  A device
@@ -29,15 +30,21 @@ of at most ``resident_shards`` device buffers:
   relax that reads it has run.  Shards still resident from an earlier
   round are **buffer hits** and cost no bytes.
 * **Integrity** — each shard's CRC32 (from the cut or the store's
-  manifest) is re-derived on every miss; a read that keeps failing after
-  the ``RetryPolicy``'s budget raises ``ShardCorruptError``, and only a
-  read that verified is copied to the device.
+  manifest) is re-derived on every miss, from the copy itself: on a CUDA
+  device the ``crc32`` kernel (``kernels/crc32``) checks the device buffer
+  on the copy stream right after its copy and the host waits for that one
+  word, so no host CRC runs on the miss path; on the CPU ``crc32_ref``
+  checks the uploaded clone.  A mismatch raises ``ShardCorruptError``
+  inside the attempt, so the ``RetryPolicy`` re-reads and re-copies; an
+  attempt that keeps failing after its budget raises out of the relax, a
+  corrupt buffer is dropped, and only a copy that verified is relaxed.
 
 Accounting: every miss streams exactly ``shard_bytes`` (the padded
 src/dst/w triple, one copy), so ``h2d_bytes == shards_streamed *
 shard_bytes``; ``buffer_hits`` counts scheduled shards already resident;
 ``edges_relaxed`` charges each scheduled shard's valid edge count
-(``shard_sizes``), never its padded slots.
+(``shard_sizes``), never its padded slots; ``io_wait_us`` is the host's
+time in the miss path, which includes waiting for the copy and its CRC.
 
 * **Staged stretches** (``stage`` + ``StagedShards`` +
   ``engine.run_streamed``) — a live shard set that fits the pool is
@@ -74,6 +81,7 @@ import torch
 
 from ..distributed.fault import RetryPolicy
 from ..kernels import graph_ops as gk
+from ..kernels.crc32 import ops as crc_ops
 from .engine import fetch
 from .faultio import FaultInjector, ShardCorruptError
 from .graph import Graph, _device, round_up, shard_ranges
@@ -81,8 +89,9 @@ from .graph import Graph, _device, round_up, shard_ranges
 
 def shard_crc(src: np.ndarray, dst: np.ndarray, w: np.ndarray) -> int:
     """CRC32 of one padded shard's (src, dst, w) triple, chained over the
-    three arrays in order — the checksum the store's manifest records and
-    every miss re-derives (the reference's, byte for byte)."""
+    three arrays in order — the checksum the store's manifest records (the
+    reference's, byte for byte).  It equals the CRC of the packed shard
+    buffer (src, dst, w's bits), which the miss path checks on the copy."""
     c = zlib.crc32(np.ascontiguousarray(src))
     c = zlib.crc32(np.ascontiguousarray(dst), c)
     return zlib.crc32(np.ascontiguousarray(w), c)
@@ -98,7 +107,8 @@ class StreamIO:
     buffer_hits: int = 0
     edges_relaxed: int = 0  # valid edges relaxed (padding never charged)
     # fault-tolerance ledger: reads retried, checksum mismatches seen, and
-    # the wall time of the miss path (read + verify + copy issue + backoff)
+    # the wall time of the miss path (read, staging, the copy and its CRC
+    # on the card, which the host waits for, and backoff)
     io_retries: int = 0
     checksum_failures: int = 0
     io_wait_us: int = 0
@@ -335,6 +345,7 @@ class TieredGraph(_VertexTier):
         self._staging = [None, None]      # pinned ring for store-backed shards
         self._staging_events = [None, None]
         self._staging_next = 0
+        self._verdict = None               # pinned word the CRC kernel writes
 
     def _entries(self, shards):
         triples, bufs = [], []
@@ -381,27 +392,49 @@ class TieredGraph(_VertexTier):
         self.fault = fault
 
     def _read_shard(self, sid: int, direction: str = "csr"):
-        """One read attempt of shard ``sid``'s host arrays: fault injection
-        first, then the CRC check against the recorded one (a mismatch
-        raises ShardCorruptError, which the retry policy re-reads).  CSC
-        shards tick the ``shard_read`` site under the key
-        ``nshards + sid``."""
+        """One read of shard ``sid``'s host arrays, through the fault
+        injector (which may raise, or return corrupted copies).  CSC shards
+        tick the ``shard_read`` site under the key ``nshards + sid``."""
         csc = direction == "csc"
         s, d, w = (self._csc_host if csc else self._host)[sid]
         if self.fault is not None:
             s, d, w = self.fault.shard_read(self.nshards + sid if csc
                                             else sid, s, d, w)
-        crcs = self.in_shard_crcs if csc else self.shard_crcs
-        if self.verify_checksums and crcs is not None:
-            got = shard_crc(s, d, w)
-            want = crcs[sid]
-            if got != want:
-                self.io.checksum_failures += 1
-                raise ShardCorruptError(
-                    f"{direction} shard {sid}: crc32 {got:#010x} != recorded "
-                    f"{want:#010x} — bit-rot, a torn write, or a store "
-                    "mixed from two cuts; rebuild with save_graph")
         return s, d, w
+
+    def _verify(self, sid: int, direction: str, buf) -> None:
+        """Check an uploaded shard buffer against its recorded CRC: on the
+        card the ``crc32`` kernel runs on the copy stream after the copy
+        and the host waits for its word; on the CPU ``crc32_ref``.  A
+        mismatch counts a checksum failure and raises ShardCorruptError."""
+        crcs = self.in_shard_crcs if direction == "csc" else self.shard_crcs
+        if not self.verify_checksums or crcs is None:
+            return
+        data, _ = buf
+        if data.device.type == "cuda":
+            if self._verdict is None:
+                self._verdict = torch.empty((1,), dtype=torch.int32, pin_memory=True)
+            done = torch.cuda.Event()
+            crc_ops.crc32_async(data, self._verdict, self._copy_stream)
+            done.record(self._copy_stream)
+            done.synchronize()
+            got = int(self._verdict[0]) & 0xFFFFFFFF
+        else:
+            got = crc_ops.crc32(data)
+        want = crcs[sid]
+        if got != want:
+            self.io.checksum_failures += 1
+            raise ShardCorruptError(
+                f"{direction} shard {sid}: crc32 {got:#010x} != recorded "
+                f"{want:#010x} — bit-rot, a torn write, or a store "
+                "mixed from two cuts; rebuild with save_graph")
+
+    def _attempt(self, sid: int, direction: str):
+        """One attempt of a miss, in the reference's order: read (the fault
+        injector ticks), copy to the device, check the copy's CRC."""
+        buf = self._upload(sid, direction, *self._read_shard(sid, direction))
+        self._verify(sid, direction, buf)
+        return buf
 
     def _staging_buffer(self) -> int:
         """The next slot of the pinned staging ring, once its last copy has
@@ -416,7 +449,7 @@ class TieredGraph(_VertexTier):
         return i
 
     def _upload(self, sid: int, direction: str, s, d, w):
-        """Start the copy of one verified shard read to the device; returns
+        """Start the copy of one shard read to the device; returns
         ``(buffer, event)`` (no event on the CPU)."""
         csc = direction == "csc"
         host = (self._csc_bufs if csc else self._bufs)[sid]
@@ -449,10 +482,11 @@ class TieredGraph(_VertexTier):
         hit costs no bytes, a miss streams the shard, evicting LRU shards
         beyond the pool budget.  Every scheduled shard passes through here
         exactly once per relax, so ``buffer_hits + shards_streamed`` equals
-        the shards scheduled.  The miss path is the recovery boundary: the
-        host read and CRC check run under ``self.retry`` (``io_retries``
-        counts the re-reads), and one successful miss charges exactly one
-        ``shard_bytes`` however many attempts it took."""
+        the shards scheduled.  The miss path is the recovery boundary: each
+        attempt (read, copy, the copy's CRC check) runs under ``self.retry``
+        (``io_retries`` counts the re-reads), and one successful miss
+        charges exactly one ``shard_bytes`` however many attempts it
+        took."""
         pool = self._pool
         key = (direction, sid)
         if key in pool:
@@ -467,9 +501,7 @@ class TieredGraph(_VertexTier):
             self.io.io_retries += 1
 
         try:
-            s, d, w = self.retry.run(self._read_shard, sid, direction,
-                                     on_retry=count_retry)
-            buf = self._upload(sid, direction, s, d, w)
+            buf = self.retry.run(self._attempt, sid, direction, on_retry=count_retry)
         finally:
             self.io.io_wait_us += int((time.perf_counter() - t0) * 1e6)
         pool[key] = buf
@@ -500,7 +532,8 @@ class TieredGraph(_VertexTier):
         """Masked push over the streamed shards (``operators.push_dense``'s
         target; ``sparse_round`` lowers here too — the schedule already is
         the frontier's shard set).  Scheduled shards fold in ascending
-        order while the next shard's copy is in flight.  ``reverse=True``
+        order; each relax is enqueued before the next shard's fetch, so it
+        runs while that copy and its check are in flight.  ``reverse=True``
         (bc's backward sweep) activates on destinations, which any shard
         may hold, so it schedules every shard."""
         if reverse:
@@ -514,13 +547,12 @@ class TieredGraph(_VertexTier):
             return acc
         cur = self._fetch(sched[0])
         for i in range(len(sched)):
-            buf = cur
-            if i + 1 < len(sched):
-                cur = self._fetch(sched[i + 1])  # prefetch overlaps the relax
-            s, d, w = self._ready(buf)
+            s, d, w = self._ready(cur)
             acc = _shard_relax(s, d, w, src_val, active, acc, kind=kind,
                                use_weight=use_weight, sub=substrate, det=det,
                                reverse=reverse)
+            if i + 1 < len(sched):
+                cur = self._fetch(sched[i + 1])  # overlaps the relax
         return acc
 
     def tiered_pull_dense(self, src_val, active, out_init, kind, use_weight,
@@ -538,12 +570,11 @@ class TieredGraph(_VertexTier):
         acc = out_init
         cur = self._fetch(0, "csc")
         for sid in range(self.nshards):
-            buf = cur
-            if sid + 1 < self.nshards:
-                cur = self._fetch(sid + 1, "csc")  # prefetch overlaps the relax
-            s, d, w = self._ready(buf)
+            s, d, w = self._ready(cur)
             acc = _shard_pull(s, d, w, src_val, active, acc, kind=kind,
                               use_weight=use_weight, sub=substrate, det=det)
+            if sid + 1 < self.nshards:
+                cur = self._fetch(sid + 1, "csc")  # overlaps the relax
         return acc
 
     # ---- staged stretch support (engine.run_streamed) ------------------

@@ -80,6 +80,13 @@ SIGNATURES = {
         "spmm_bsr_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                              _I),
     },
+    "crc32": {
+        # data, nbytes, segment, pad, blocks, combine threads, chunk, powers
+        # (host array), init term, scratch, out on the card, out on the host
+        # (pinned, or null), stream
+        "crc32_device": ([_P, _LL, _I, _LL, _LL, _I, _LL, _P, ctypes.c_uint32, _P, _P, _P,
+                          _P], _I),
+    },
     "flash_attention": {
         # q, k, v, out, bh, s, d, causal, window (-1 = none), scale, splits
         # (f32 only), stream; f32 in split TF32 and bf16 (``_tc``), both on
